@@ -4,20 +4,31 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit.
-2. Builds the fused fold CUDA kernel from ``src/repro_torch/kernels/
-   fused_fold/csrc/fused_fold.cu`` (nvcc, sm_90a).
-3. Holds the kernel against its plain PyTorch version and the float64 NumPy
-   oracle over bf16/f32/i32/bool payloads, G in {1, 7, 64, the kernel's
-   limit}, ragged shapes and NaN/Inf in masked-off rows; two launches must
-   give identical bits.
-4. Drives the main path at full size: the paper's 4,490-subject population
-   (Table 3), one float32 91x109x91 MNI152 2 mm volume per subject, on
-   ``GridSession(devices=["cuda:0"] * 4)`` with the paper's two node types
-   — a cold grouped two-column Moments+Mean query, a warm repeat, an upload,
-   a remove, a rebalance and ``run(MeanProgram(), impl="kernel")`` — and
-   checks it against a float64 oracle on a voxel subset and against a second
-   session that folds with plain PyTorch.
-5. Prints one JSON line of kernel measurements, the card line, and last
+2. Builds the three CUDA kernels side by side (one nvcc each, sm_90a):
+   K1 fused fold, K2 flash attention, K3 SSD scan.
+3. Holds K1 against its plain PyTorch version and the float64 NumPy oracle
+   over bf16/f32/i32/bool payloads, G in {1, 7, 64, the kernel's limit},
+   ragged shapes and NaN/Inf in masked-off rows; two launches must give
+   identical bits.  NaN/Inf/1e20 in valid rows (gids in and out of range)
+   must give the plain version's NaN/Inf positions and finite values.
+4. Holds K2 and K3 against their plain versions (and K3 against the
+   literal recurrence) on the reference kernel tests' shapes and at the
+   serving shapes.
+5. Drives the population path at full size: the paper's 4,490-subject
+   population (Table 3), one float32 91x109x91 MNI152 2 mm volume per
+   subject, on ``GridSession(devices=["cuda:0"] * 4)`` with the paper's two
+   node types — a cold grouped two-column Moments+Mean query, a warm
+   repeat, an upload, a remove, a rebalance and
+   ``run(MeanProgram(), impl="kernel")`` — and checks it against a float64
+   oracle on a voxel subset and against a second session that folds with
+   plain PyTorch.
+6. Serves zamba2-1.2b at full width and depth (38 layers, random weights
+   from a seed) through ``ServeEngine(device="cuda")``: 8 requests, 2048
+   prompt tokens, 64 new tokens, greedy; counts K2/K3 launches per prefill
+   by wrapper and by the profiler's kernel names, and holds the prefill
+   and every decode step's logits against the same model run with the
+   kernels' plain versions on the same token stream.
+7. Prints one JSON line of kernel measurements, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -26,6 +37,7 @@ Exits non-zero, printing no result, without CUDA or outside a checkout.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import subprocess
@@ -56,11 +68,31 @@ from repro_torch.kernels.fused_fold.ops import (  # noqa: E402
     max_groups_for_smem,
 )
 from repro_torch.kernels.fused_fold.ref import fused_fold_numpy  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as K2  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref,
+)
+from repro_torch.kernels.ssm_scan import kernel as K3  # noqa: E402
+from repro_torch.kernels.ssm_scan.ref import (  # noqa: E402
+    ssd_chunked_ref,
+    ssd_scan_sequential,
+)
+from repro_torch.configs import zamba2_1p2b  # noqa: E402
+from repro_torch.models import attention as attention_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    build_model,
+    cast_for_compute,
+    pad_caches,
+)
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 VOLUME = (91, 109, 91)          # MNI152 2 mm grid
 SCALE = 1.0                     # 4,490 subjects (the paper's Table 3)
 HBM_BPS = 3.35e12               # H100 SXM data sheet
 FP32_FLOPS = 67e12              # H100 SXM data sheet, fp32 outside tensor cores
+BF16_FLOPS = 989e12             # H100 SXM data sheet, bf16 dense tensor cores
+DEV = "cuda"
 NAMES = ("count", "s1", "s2", "s3", "s4")
 NODES = [NodeSpec(0, cores=12, mips=1.0), NodeSpec(1, cores=12, mips=1.0),
          NodeSpec(2, cores=32, mips=1.6), NodeSpec(3, cores=32, mips=1.6)]
@@ -143,8 +175,166 @@ def kernel_sweep():
     return cases, worst
 
 
+def nonfinite_sweep():
+    """NaN, Inf and 1e20 (whose square overflows f32) in VALID rows, with
+    gids in and out of range: the kernel must give its plain version's
+    NaN/Inf positions (the reference's: every other group's power sum is
+    poisoned) and, where finite, its values; a re-launch the same bits."""
+    rng = np.random.default_rng(2)
+    cases = 0
+    for G in (1, 2, 7, 64):
+        for R, F in ((37, 130), (1000, 4097)):
+            for bad in (np.inf, -np.inf, np.nan, 1e20):
+                x = rng.normal(size=(R, F)).astype(np.float32)
+                m = rng.random(R) > 0.3
+                g = rng.integers(-1, G + 1, R).astype(np.int32)
+                valid = np.nonzero(m)[0]
+                for r in valid[:4]:
+                    x[r, rng.integers(0, F, 3)] = bad
+                x[np.nonzero(~m)[0][:2], :5] = bad
+                xd = torch.from_numpy(x).cuda()
+                md = torch.from_numpy(m).cuda()
+                gd = torch.from_numpy(g).cuda()
+                got = fused_fold(xd, md, gd, G)
+                again = fused_fold(xd, md, gd, G)
+                plain = K.fused_fold_torch(xd, gd, md.float(), G, NAMES)
+                torch.cuda.synchronize()
+                rtol, atol = (1e-3, 1e-2) if R * F > 10_000 else (1e-4, 1e-3)
+                where = f"G={G} R={R} F={F} bad={bad}"
+                poisoned = 0
+                for n in NAMES:
+                    a, b = got[n].cpu(), plain[n].cpu()
+                    check(torch.equal(a.view(torch.int32),
+                                      again[n].cpu().view(torch.int32)),
+                          f"re-launch bits differ: {where} {n}")
+                    for what in (torch.isnan, torch.isposinf,
+                                 torch.isneginf):
+                        check(torch.equal(what(a), what(b)),
+                              f"{what.__name__} positions: {where} {n}")
+                    fin = torch.isfinite(b)
+                    check(torch.allclose(a[fin].double(), b[fin].double(),
+                                         rtol=rtol, atol=atol),
+                          f"finite values: {where} {n}")
+                    poisoned += int((~fin).sum())
+                check(poisoned > 0 and bool(torch.isfinite(got["count"])
+                                            .all()),
+                      f"no poisoned sums, or a poisoned count: {where}")
+                cases += 1
+    return cases
+
+
 # ----------------------------------------------------------------------
-# phase 4: the main path at full size
+# phase 4: K2 and K3 against their plain versions
+# ----------------------------------------------------------------------
+
+F32, BF16 = torch.float32, torch.bfloat16
+#: (B, H, Hkv, Sq, Skv, D, causal, window, dtype): tests/test_kernels.py's
+#: flash cases (GQA, MQA, ragged S, long KV, windows, bf16) and the
+#: serving shape, which runs on [B, S, H, D] views as the model passes it
+K2_CASES = [
+    (1, 2, 2, 128, 128, 64, True, 0, F32),
+    (2, 4, 2, 128, 128, 64, True, 0, F32),
+    (1, 8, 1, 256, 256, 32, True, 0, F32),
+    (1, 4, 2, 96, 96, 64, True, 0, F32),
+    (2, 4, 4, 64, 256, 128, False, 0, F32),
+    (1, 2, 2, 256, 256, 64, True, 32, F32),
+    (1, 2, 2, 256, 256, 64, True, 64, F32),
+    (1, 2, 2, 256, 256, 64, True, 127, F32),
+    (1, 2, 2, 128, 128, 64, True, 0, BF16),
+    (2, 4, 2, 96, 96, 64, True, 64, BF16),
+    (8, 32, 32, 2048, 2048, 64, True, 0, BF16),
+]
+#: f32 at the reference tests' 2e-5, scaled by 5 for the card's exp and
+#: summation order; bf16 outputs at the reference's 2e-2
+K2_TOL = {F32: 1e-4, BF16: 2e-2}
+
+
+def k2_sweep(gen):
+    worst = 0.0
+    for B, H, Hkv, Sq, Skv, D, causal, window, dt in K2_CASES:
+        q = torch.randn(B, Sq, H, D, generator=gen, device=DEV).to(dt)
+        k = torch.randn(B, Skv, Hkv, D, generator=gen, device=DEV).to(dt)
+        v = torch.randn(B, Skv, Hkv, D, generator=gen, device=DEV).to(dt)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        got = K2.flash_attention_cuda(q, k, v, D ** -0.5, causal, window)
+        want = attention_ref(q, k, v, D ** -0.5, causal, window)
+        torch.cuda.synchronize()
+        check(got.dtype == dt and got.shape == want.shape, "K2 output")
+        err = float((got.float() - want.float()).abs().max())
+        tol = K2_TOL[dt]
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"K2 vs plain {(B, H, Hkv, Sq, Skv, D, causal, window, dt)}:"
+              f" max err {err:.3g}")
+        worst = max(worst, err)
+    return len(K2_CASES), worst
+
+
+#: (B, L, H, P, N, chunk, B/C dtype, decay low end): tests/test_kernels.py's
+#: SSD cases (incl. L=100 padding), chunk invariance, the long strong-decay
+#: case (x = 1, a = 0.5), a bf16 ragged case and the serving shape
+K3_CASES = [
+    (1, 64, 1, 16, 16, 16, F32, 0.7),
+    (2, 128, 2, 32, 16, 64, F32, 0.7),
+    (1, 128, 4, 64, 64, 128, F32, 0.7),
+    (1, 100, 2, 32, 32, 32, F32, 0.7),
+    (1, 128, 2, 16, 16, 16, F32, 0.8),
+    (1, 128, 2, 16, 16, 128, F32, 0.8),
+    (1, 256, 1, 16, 16, 64, F32, None),
+    (2, 300, 3, 64, 64, 128, BF16, 0.7),
+    (8, 2048, 64, 64, 64, 128, BF16, 0.7),
+]
+K3_TOL = 1e-4          # the reference suite's; relative on the serving shape
+
+
+def k3_inputs(gen, B, L, H, P, N, bdt, lo):
+    if lo is None:     # long-decay stability case
+        return (torch.ones(B, L, H, P, device=DEV),
+                torch.full((B, L, H), 0.5, device=DEV),
+                torch.full((B, L, N), 0.1, device=DEV).to(bdt),
+                torch.full((B, L, N), 0.1, device=DEV).to(bdt))
+    x = torch.randn(B, L, H, P, generator=gen, device=DEV) * 0.5
+    a = lo + (0.999 - lo) * torch.rand(B, L, H, generator=gen, device=DEV)
+    # B and C as column slices of one wider tensor, as the model hands them
+    xbc = (torch.randn(B, L, 2 * N + 8, generator=gen, device=DEV)
+           * 0.3).to(bdt)
+    return x, a, xbc[..., :N], xbc[..., N:2 * N]
+
+
+def k3_sweep(gen):
+    worst = 0.0
+    for B, L, H, P, N, chunk, bdt, lo in K3_CASES:
+        x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, bdt, lo)
+        y, s = K3.ssd_scan_cuda(x, a, Bm, Cm, chunk)
+        yp, sp = ssd_chunked_ref(x, a, Bm, Cm, min(chunk, L))
+        torch.cuda.synchronize()
+        where = (B, L, H, P, N, chunk, bdt, lo)
+        check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
+              f"K3 non-finite {where}")
+        scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
+        for got, want, what in ((y, yp, "y"), (s, sp, "state")):
+            err = float((got - want).abs().max())
+            check(err <= K3_TOL * scale,
+                  f"K3 {what} vs plain {where}: max err {err:.3g} "
+                  f"(scale {scale:.3g})")
+            worst = max(worst, err)
+        if B * H * L <= 2048:          # the literal recurrence, small cases
+            xs = x.permute(0, 2, 1, 3).reshape(B * H, L, P)
+            as_ = a.permute(0, 2, 1).reshape(B * H, L)
+            Bs = Bm[:, None].expand(B, H, L, N).reshape(B * H, L, N)
+            Cs = Cm[:, None].expand(B, H, L, N).reshape(B * H, L, N)
+            yq, sq = ssd_scan_sequential(xs, as_, Bs, Cs)
+            yq = yq.reshape(B, H, L, P).permute(0, 2, 1, 3)
+            check(torch.allclose(y, yq, rtol=K3_TOL, atol=K3_TOL * scale)
+                  and torch.allclose(s, sq.reshape(B, H, P, N),
+                                     rtol=K3_TOL, atol=K3_TOL * scale),
+                  f"K3 vs the sequential recurrence {where}")
+        if lo is None:                 # geometric series bound
+            check(float(s.abs().max()) < 2 * 0.1 / 0.5, "K3 long decay")
+    return len(K3_CASES), worst
+
+
+# ----------------------------------------------------------------------
+# phase 5: the population path at full size
 # ----------------------------------------------------------------------
 
 def build_population(scale, seed=0, chunk=256):
@@ -436,7 +626,7 @@ def measure_block(table):
     plain_ms = event_ms(lambda: K.fused_fold_torch(x, gd, mf, G, NAMES), 5)
     # yardstick: one index_add_ of the selected rows' payload (Σx only)
     dump = torch.where(md, gd.long(), torch.full_like(gd.long(), G))
-    acc = torch.zeros((G + 1, F), dtype=torch.float32, device="cuda")
+    acc = torch.zeros((G + 1, F), dtype=torch.float32, device=DEV)
     library_ms = event_ms(lambda: acc.index_add_(0, dump, x), 5)
     K.fused_fold_cuda.launches = before       # comparison launches
 
@@ -458,12 +648,309 @@ def measure_block(table):
     }
 
 
+# ----------------------------------------------------------------------
+# phase 6: zamba2-1.2b serving at full width and depth
+# ----------------------------------------------------------------------
+
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 2048, 64
+SERVE_HEADS, SERVE_SSM_HEADS = 32, 64       # zamba2-1.2b's attention, SSM
+#: Kernel run against plain-kernel run.  With random weights the model in
+#: bf16 drifts far from its own fp32 computation (about 30% relative in the
+#: last hidden state, measured on the card), and any two bf16 runs whose
+#: fp32 kernels merely sum in other orders drift apart as far.  So the
+#: kernels are held to their plain versions twice: with fp32 activations,
+#: where the gap is the kernels' own (logits are O(1): 2e-2 is 1/50 of one
+#: standard deviation), and in bf16 against the bf16 noise floor: the
+#: kernel run may be no further from the fp32 run than the plain bf16 run
+#: is, within 10% on the mean |Δlogit| and 25% on the largest.
+F32_LOGIT_TOL = 2e-2
+F32_GREEDY_MIN = 0.98
+BF16_MEAN_RATIO, BF16_MAX_RATIO = 1.10, 1.25
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The model's two kernel calls pointed at the kernels' plain versions
+    (``attention_ref``; ``ssd_chunked_ref`` from a zero state); undone on
+    exit.  The wrappers are never reached while it is active."""
+    saved = attention_mod.flash_attention, ssm_mod.ssd_scan
+    attention_mod.flash_attention = attention_ref
+    ssm_mod.ssd_scan = lambda x, a, Bm, Cm, chunk: ssd_chunked_ref(
+        x, a, Bm, Cm, min(chunk, x.shape[1]))
+    try:
+        yield
+    finally:
+        attention_mod.flash_attention, ssm_mod.ssd_scan = saved
+
+
+def teacher_forced(model, cfg, params, capacity, prompts, tokens):
+    """``[B, steps, V]`` fp32 logits: the prefill's, then each decode
+    step's when ``tokens`` (the kernel run's greedy stream) is fed in."""
+    B, S = prompts.shape
+    logits, caches = model.prefill(params, prompts)
+    caches = pad_caches(cfg, caches, capacity)
+    out = [logits.float()]
+    for i in range(tokens.shape[1] - 1):
+        pos = torch.full((B,), S + i, dtype=torch.int64, device=DEV)
+        logits, caches = model.decode_step(params, tokens[:, i], pos, caches)
+        out.append(logits.float())
+    return torch.stack(out, dim=1)
+
+
+def gaps(a, b):
+    d = (a - b).abs()
+    return float(d.max()), float(d.mean())
+
+
+def device_breakdown(fn):
+    """Run ``fn`` under the profiler -> (host seconds, {category: device
+    seconds}, {category: kernel count}, the five longest kernel names with
+    their seconds and counts).  cuBLAS's Hopper GEMMs are named
+    ``nvjet_*`` or ``sm90_xmma_*``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall = timed(fn)
+    secs, calls, by_name = {}, {}, {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = evt.name.lower()
+        if "flash_fwd_kernel" in name:
+            cat = "K2"
+        elif "ssd_scan_kernel" in name:
+            cat = "K3"
+        elif "memcpy" in name or "memset" in name:
+            cat = "copy"
+        elif any(w in name for w in ("gemm", "cutlass", "xmma", "nvjet",
+                                     "cublas")):
+            cat = "matmul"
+        else:
+            cat = "other"
+        us = evt.time_range.elapsed_us()
+        secs[cat] = secs.get(cat, 0.0) + us / 1e6
+        calls[cat] = calls.get(cat, 0) + 1
+        t, n = by_name.get(evt.name, (0.0, 0))
+        by_name[evt.name] = (t + us / 1e6, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return wall, secs, calls, top
+
+
+def serve_path():
+    """zamba2-1.2b through ``ServeEngine(device="cuda")``; returns the
+    measurements."""
+    cfg = zamba2_1p2b.full()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(gen, DEV)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, device=DEV,
+                            dtype=torch.int32).cpu().numpy()
+    engine = ServeEngine(cfg, params, capacity=SERVE_PROMPT + SERVE_NEW + 1,
+                         batch_size=SERVE_B, device=DEV)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"init_s": time.perf_counter() - t0, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count()}
+    engine.generate(prompts[:, :256], 2)          # warm-up: libraries, plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    K2.flash_attention_cuda.launches = 0
+    K3.ssd_scan_cuda.launches = 0
+    res = engine.generate(prompts, SERVE_NEW)
+    out["launches"] = {"K2": K2.flash_attention_cuda.launches,
+                       "K3": K3.ssd_scan_cuda.launches}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    kinds = cfg.layer_kinds()
+    want = {"K2": kinds.count("attn_shared") + kinds.count("attn"),
+            "K3": kinds.count("ssm")}          # 6 and 32 for zamba2-1.2b
+    check(out["launches"] == want,
+          f"launches per prefill {out['launches']} != {want}")
+    check(res.tokens.shape == (SERVE_B, SERVE_NEW)
+          and 0 <= res.tokens.min() and res.tokens.max() < cfg.vocab,
+          "generated tokens")
+    out["prefill_s"] = res.prefill_s
+    out["decode_s"] = res.decode_s
+    out["decode_tok_s"] = SERVE_B * (SERVE_NEW - 1) / res.decode_s
+
+    pr = torch.as_tensor(prompts, dtype=torch.int64, device=DEV)
+    toks = torch.as_tensor(res.tokens, dtype=torch.int64, device=DEV)
+    wall, secs, calls, top = device_breakdown(
+        lambda: engine.model.prefill(engine.params, pr))
+    check(calls.get("K2") == want["K2"] and calls.get("K3") == want["K3"],
+          f"profiler kernel names per prefill: {calls}")
+    out["prefill_trace"] = (wall, secs, calls, top)
+    _, caches = engine.model.prefill(engine.params, pr)
+    caches = pad_caches(cfg, caches, engine.capacity)
+    pos = torch.full((SERVE_B,), SERVE_PROMPT, dtype=torch.int64,
+                     device=DEV)
+    out["decode_trace"] = device_breakdown(
+        lambda: engine.model.decode_step(engine.params, toks[:, 0], pos,
+                                         caches))
+    del caches
+
+    counts = (K2.flash_attention_cuda.launches, K3.ssd_scan_cuda.launches)
+    run = (engine.model, cfg, engine.params, engine.capacity, pr, toks)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = cast_for_compute(cfg32, engine.params, DEV)
+    run32 = (build_model(cfg32), cfg32, params32, engine.capacity, pr, toks)
+    kern, kern32 = teacher_forced(*run), teacher_forced(*run32)
+    with plain_kernels():
+        plain, plain32 = teacher_forced(*run), teacher_forced(*run32)
+    del params32
+    after = (K2.flash_attention_cuda.launches, K3.ssd_scan_cuda.launches)
+    check(after == (counts[0] + 2 * want["K2"], counts[1] + 2 * want["K3"]),
+          f"plain-kernel runs launched a kernel: {counts} -> {after}")
+    K2.flash_attention_cuda.launches, K3.ssd_scan_cuda.launches = \
+        out["launches"]["K2"], out["launches"]["K3"]
+    check(all(bool(torch.isfinite(t).all())
+              for t in (kern, plain, kern32, plain32)), "non-finite logits")
+    out["logit_max_err"], out["logit_mean_err"] = gaps(kern, plain)
+    out["prefill_logit_max_err"] = gaps(kern[:, 0], plain[:, 0])[0]
+    out["f32_max_err"], out["f32_mean_err"] = gaps(kern32, plain32)
+    out["kern_to_f32"] = gaps(kern, plain32)
+    out["plain_to_f32"] = gaps(plain, plain32)
+    out["logit_absmax"] = float(plain32.abs().max())
+    out["greedy_self"] = float(
+        (kern.argmax(-1).cpu().numpy() == res.tokens).mean())
+    out["greedy_plain"] = float(
+        (plain.argmax(-1).cpu().numpy() == res.tokens).mean())
+    out["greedy_f32"] = float(
+        (kern32.argmax(-1) == plain32.argmax(-1)).float().mean())
+    check(out["greedy_self"] == 1.0,
+          "teacher-forced kernel run disagrees with generate()")
+    check(out["f32_max_err"] <= F32_LOGIT_TOL
+          and out["greedy_f32"] >= F32_GREEDY_MIN,
+          f"fp32 kernel vs plain logits: max {out['f32_max_err']:.3g}, "
+          f"greedy agreement {out['greedy_f32']:.3f}")
+    (km, kmean), (pm, pmean) = out["kern_to_f32"], out["plain_to_f32"]
+    check(kmean <= BF16_MEAN_RATIO * pmean and km <= BF16_MAX_RATIO * pm,
+          f"bf16 kernel run further from fp32 than the plain run: mean "
+          f"{kmean:.3g} vs {pmean:.3g}, max {km:.3g} vs {pm:.3g}")
+    del engine, kern, plain, kern32, plain32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def measure_k2(gen):
+    """K2 at the serving call: q, k, v [8, 32, 2048, 64] bf16 causal, as
+    [B, S, H, D] views."""
+    B, S, H, D = SERVE_B, SERVE_PROMPT, SERVE_HEADS, 64
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device=DEV)
+               .to(BF16).transpose(1, 2) for _ in range(3))
+    scale = D ** -0.5
+    before = K2.flash_attention_cuda.launches
+    got = K2.flash_attention_cuda(q, k, v, scale)
+    want = attention_ref(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    ms = event_ms(lambda: K2.flash_attention_cuda(q, k, v, scale), 10)
+    plain_ms = event_ms(lambda: attention_ref(q, k, v, scale), 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = event_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale),
+                          10)
+    K2.flash_attention_cuda.launches = before     # comparison launches
+    flops = 4 * B * H * D * (S * (S + 1) // 2)    # the causal pairs only
+    nbytes = 4 * B * S * H * D * 2                # q, k, v read, o written
+    return bound_entry(err, ms, plain_ms, library_ms, flops, nbytes)
+
+
+def measure_k3(gen):
+    """K3 at the serving call: x [8, 2048, 64, 64] f32, a [8, 2048, 64],
+    B/C [8, 2048, 64] bf16 column slices, chunk 128."""
+    B, L, H, P, N, Q = SERVE_B, SERVE_PROMPT, SERVE_SSM_HEADS, 64, 64, 128
+    x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, BF16, 0.7)
+    before = K3.ssd_scan_cuda.launches
+    y, s = K3.ssd_scan_cuda(x, a, Bm, Cm, Q)
+    yp, sp = ssd_chunked_ref(x, a, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    err = max(float((y - yp).abs().max()), float((s - sp).abs().max()))
+    ms = event_ms(lambda: K3.ssd_scan_cuda(x, a, Bm, Cm, Q), 10)
+    plain_ms = event_ms(lambda: ssd_chunked_ref(x, a, Bm, Cm, Q), 3)
+    K3.ssd_scan_cuda.launches = before
+    # operations the chunked scan needs: the lower triangles of C.B^T and
+    # of M.x, the carried state's term, the state update
+    per_chunk = Q * (Q + 1) * (N + P) + 4 * Q * P * N + 2 * P * N
+    flops = B * H * -(-L // Q) * per_chunk
+    nbytes = (2 * B * L * H * P * 4 + B * L * H * 4 + 2 * B * L * N * 2
+              + B * H * P * N * 4)      # x, y; a; B, C once; final state
+    return bound_entry(err, ms, plain_ms, None, flops, nbytes)
+
+
+def bound_entry(err, ms, plain_ms, library_ms, flops, nbytes):
+    bytes_ms = nbytes / HBM_BPS * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "flops": flops, "bytes": nbytes}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def report_serve(sv, card):
+    log(f"zamba2-1.2b serve on {card}: {sv['layers']} layers, d_model "
+        f"{sv['d_model']}, {sv['params'] / 1e9:.3f} B params; batch "
+        f"{SERVE_B}, prompt {SERVE_PROMPT}, {SERVE_NEW} new tokens, greedy: "
+        f"prefill {sv['prefill_s']:.3f} s, decode {sv['decode_tok_s']:.1f} "
+        f"tok/s ({sv['decode_s']:.3f} s for {SERVE_NEW - 1} steps), peak "
+        f"device memory {sv['peak_gb']:.1f} GB; launches per prefill "
+        f"{sv['launches']}")
+    for what in ("prefill", "decode"):
+        w, secs, calls, top = sv[f"{what}_trace"]
+        busy = sum(secs.values())
+        log(f"  traced {what} on {card}: wall {w:.4f} s, device busy "
+            f"{busy:.4f} s (idle share {1 - busy / w:.3f}): " + ", ".join(
+                f"{k} {secs[k]:.4f} s/{calls[k]} kernels"
+                for k in sorted(secs, key=lambda k: -secs[k])))
+        for evt_name, (sec, n) in top:
+            log(f"    {sec:.4f} s in {n} calls: {evt_name[:90]}")
+    (km, kmean), (pm, pmean) = sv["kern_to_f32"], sv["plain_to_f32"]
+    log(f"kernel run vs plain-kernel run, same weights and token stream, "
+        f"prefill + {SERVE_NEW - 1} decode steps: fp32 activations max "
+        f"|logit diff| {sv['f32_max_err']:.4g}, mean {sv['f32_mean_err']:.3g}"
+        f" (tolerance {F32_LOGIT_TOL}), greedy agreement "
+        f"{sv['greedy_f32'] * 100:.1f}%; bf16 max {sv['logit_max_err']:.4g} "
+        f"(prefill {sv['prefill_logit_max_err']:.4g}), mean "
+        f"{sv['logit_mean_err']:.3g}, greedy tokens matching the plain "
+        f"run's argmax {sv['greedy_plain'] * 100:.1f}%; distance to the fp32"
+        f" run: kernel bf16 max {km:.4g} mean {kmean:.3g}, plain bf16 max "
+        f"{pm:.4g} mean {pmean:.3g} (max |logit| {sv['logit_absmax']:.3g})")
+
+
+def build_kernels():
+    """Start every kernel's nvcc at once, then wait on each."""
+    t0 = time.perf_counter()
+    libs = (K.LIBRARY, K2.LIBRARY, K3.LIBRARY)
+    for lib in libs:
+        lib.start()
+    for lib in libs:
+        lib.get()
+        log(f"built {lib.source.name} in {lib.build_seconds:.1f} s "
+            f"({lib.path.name})")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas:", line.strip())
+    log(f"all kernels built in {time.perf_counter() - t0:.1f} s, side by "
+        f"side")
+
+
+def kernel_line(name, source, replaces, launches, m):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
 
 
 def main() -> int:
@@ -474,25 +961,31 @@ def main() -> int:
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"card {card} | torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    K.LIBRARY.get()
-    log(f"built fused_fold in {time.perf_counter() - t0:.1f} s "
-        f"({K.LIBRARY.path.name})")
-    for line in K.LIBRARY.build_log.splitlines():
-        if "registers" in line:
-            log("  ptxas:", line.strip())
+    build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(1)
 
     t0 = time.perf_counter()
     cases, worst = kernel_sweep()
-    log(f"kernel sweep: {cases} cases vs plain and float64, "
-        f"max |kernel-plain| {worst:.3g}, {time.perf_counter() - t0:.1f} s")
+    nf = nonfinite_sweep()
+    log(f"K1 sweep: {cases} cases vs plain and float64, max |kernel-plain| "
+        f"{worst:.3g}; {nf} cases with NaN/Inf/1e20 in valid rows give the "
+        f"plain version's NaN/Inf positions and values; "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n2, worst2 = k2_sweep(gen)
+    n3, worst3 = k3_sweep(gen)
+    log(f"K2 sweep: {n2} cases vs plain, max |kernel-plain| {worst2:.3g}; "
+        f"K3 sweep: {n3} cases vs plain (and the recurrence on the small "
+        f"ones), max |kernel-plain| {worst3:.3g}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     table, t_draw, t_upload = build_population(SCALE)
     log(f"population: {table.num_rows} subjects x {VOLUME} float32 = "
         f"{table.column('img', 'data').nbytes / 1e9:.2f} GB; drawn in "
         f"{t_draw:.1f} s, uploaded in {t_upload:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
     final, m = main_path(table)
-    log(f"main path on {card}: cold {m['cold_s']:.3f} s, warm "
+    log(f"population path on {card}: cold {m['cold_s']:.3f} s, warm "
         f"{m['warm_s']:.4f} s, dirty upload {m['dirty_upload_s']:.3f} s "
         f"({m['refold_upload']} partials re-folded), dirty remove "
         f"{m['dirty_remove_s']:.3f} s ({m['refold_remove']}), rebalance "
@@ -522,19 +1015,42 @@ def main() -> int:
         f"kernel_hbm_bytes, {b['need_gbps']:.0f} GB/s of needed bytes; "
         f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}); plain "
         f"{b['plain_ms']:.3f} ms; index_add_ {b['library_ms']:.3f} ms")
-    print(json.dumps({"kernels": [{
-        "name": "fused_fold",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/fused_fold/csrc/fused_fold.cu",
-        "replaces": "src/repro/kernels/fused_fold/kernel.py:49",
-        "launches": m["launches"],
-        "max_abs_err": b["max_abs_err"],
-        "ms": b["ms"],
-        "plain_ms": b["plain_ms"],
-        "bound_ms": b["bound_ms"],
-        "bound_by": b["bound_by"],
-        "library_ms": b["library_ms"],
-    }]}), flush=True)
+    del table, final
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    sv = serve_path()
+    report_serve(sv, card)
+
+    k2m = measure_k2(gen)
+    k3m = measure_k3(gen)
+    for tag, km, shape in (("K2", k2m, "q,k,v [8,32,2048,64] bf16 causal"),
+                           ("K3", k3m, "x [8,2048,64,64] f32, B/C bf16, "
+                                       "chunk 128")):
+        lib = (f"{km['library_ms']:.3f} ms" if km["library_ms"] is not None
+               else "none (no single PyTorch call computes it)")
+        log(f"{tag} at {shape} on {card}: {km['ms']:.3f} ms, bound "
+            f"{km['bound_ms']:.4f} ms ({km['bound_by']}; "
+            f"{km['flops'] / 1e9:.1f} GFLOP, {km['bytes'] / 1e6:.1f} MB), "
+            f"plain {km['plain_ms']:.3f} ms, library {lib}, max "
+            f"|kernel-plain| {km['max_abs_err']:.3g}")
+
+    print(json.dumps({"kernels": [
+        kernel_line("fused_fold",
+                    "src/repro_torch/kernels/fused_fold/csrc/fused_fold.cu",
+                    "src/repro/kernels/fused_fold/kernel.py:49",
+                    m["launches"], b),
+        kernel_line("flash_attention",
+                    "src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:33",
+                    sv["launches"]["K2"], k2m),
+        kernel_line("ssd_scan",
+                    "src/repro_torch/kernels/ssm_scan/csrc/ssd_scan.cu",
+                    "src/repro/kernels/ssm_scan/kernel.py:29",
+                    sv["launches"]["K3"], k3m),
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

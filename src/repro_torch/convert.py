@@ -102,3 +102,36 @@ def partial_from_numpy(leaves: Sequence[np.ndarray], treedef: Any,
     if device is None:
         return partial
     return tree_map(lambda x: x.to(torch.device(device)), partial)
+
+
+def lm_params_from_jax(cfg, params: Any, device="cpu") -> Any:
+    """The port's LM weights from the reference's parameter tree.
+
+    ``params`` is the reference ``LM.init`` tree with every leaf as a numpy
+    array (``jax.tree.map(np.asarray, params)``): ``"embed"``,
+    ``"final_norm"``, ``"lm_head"``, ``"shared_block"`` and ``"runs"``
+    with stacked ``[n, ...]`` leaves.  Returns the same tree of tensors in
+    ``cfg.param_dtype`` on ``device``, checked leaf by leaf against the
+    shapes of the port's own ``LM.init`` (on the ``meta`` device)."""
+    from repro_torch.models.model import build_model
+
+    want = build_model(cfg).init(device="meta")
+
+    def conv(p, w, path):
+        if isinstance(w, dict):
+            if not isinstance(p, Mapping) or set(p) != set(w):
+                raise ValueError(f"{path}: keys {sorted(p) if isinstance(p, Mapping) else type(p)}"
+                                 f" != {sorted(w)}")
+            return {k: conv(p[k], w[k], f"{path}/{k}") for k in w}
+        if isinstance(w, list):
+            if not isinstance(p, (list, tuple)) or len(p) != len(w):
+                raise ValueError(f"{path}: expected a list of {len(w)}")
+            return [conv(a, b, f"{path}[{i}]")
+                    for i, (a, b) in enumerate(zip(p, w))]
+        arr = np.asarray(p)
+        if tuple(arr.shape) != tuple(w.shape):
+            raise ValueError(f"{path}: shape {arr.shape} != {tuple(w.shape)}")
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+            device=device, dtype=cfg.param_dtype)
+
+    return conv(params, want, "params")

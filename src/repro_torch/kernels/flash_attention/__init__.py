@@ -1,0 +1,7 @@
+"""Flash-attention forward (causal / sliding window, GQA by index).  Port of
+``src/repro/kernels/flash_attention/``: ``csrc/flash_attention.cu`` is the
+CUDA kernel, ``kernel.py`` its ctypes binding, ``ops.py`` the public op,
+``ref.py`` the plain PyTorch version."""
+
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: F401

@@ -9,8 +9,15 @@
 //   s_k[g,f] = sum of m_r * v^k      k in {1..4}, v = (m_r > 0 ? x[r,f] : 0)
 //
 // Rows are zeroed BEFORE the powers are raised, so NaN or Inf in a
-// masked-off row never reaches a sum; gids outside [0, G) contribute
-// nothing.  s3 = (v*v)*v and s4 = (v*v)*(v*v), the reference's products.
+// masked-off row never reaches a sum.  s3 = (v*v)*v and s4 = (v*v)*(v*v),
+// the reference's products.
+//
+// Non-finite powers follow the reference's one-hot contraction, where a
+// row meets every group with weight 0 except its own: 0 * Inf = NaN.  So
+// s_k[g,f] is NaN whenever some row with m_r > 0 and gid != g (in range or
+// not) has a non-finite v^k at f, on top of g's own IEEE sum.  The count,
+// contracted against ones, is never poisoned.  Rows with a gid outside
+// [0, G) add to no group's sums or count.
 //
 // Design.  The Pallas kernel carries its sums in VMEM across a sequential
 // row sweep; CUDA blocks run in no fixed order, so the grid here is
@@ -21,6 +28,12 @@
 // [S, n_acc, G, F] are then summed over S in a fixed order by a second small
 // kernel (skipped when S == 1, where the first writes the output directly).
 // The count is accumulated once, by thread 0 of the CTAs of feature tile 0.
+// For the non-finite rule no thread does per-group work per row: one FMA
+// a row tells whether its column met a non-finite power at all; only then
+// does the thread walk its split again to keep, per power, the first
+// offending gid and a "more than one gid" flag, and it writes NaN into
+// every group these poison when it stores its split's partial; the split
+// sum then carries the NaN.
 // With no floating-point atomics a re-fold returns the same bits.
 //
 // Bound.  The fold does about 15 flops per payload byte read at most, far
@@ -32,6 +45,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -95,6 +109,10 @@ __global__ void fold_split_kernel(const T* __restrict__ x,
   // independent payload loads in flight; rows then add in row order
   constexpr int UNROLL = 8;
   float* mine = acc + tid;
+  // top * 0 is 0 for a finite top and NaN otherwise, so one FMA a row
+  // tells whether any row with m > 0 had a non-finite highest power
+  // (masked rows load 0); |v|^k finite bounds the lower powers
+  float seen = 0.f;
   for (long long rb = r0; rb < r1; rb += UNROLL) {
     float mv[UNROLL], xv[UNROLL];
     int gv[UNROLL];
@@ -104,18 +122,22 @@ __global__ void fold_split_kernel(const T* __restrict__ x,
       const bool in = r < r1;
       mv[u] = in ? mask[r] : 0.f;
       gv[u] = in ? gids[r] : -1;
-      const bool load = live && mv[u] > 0.f && gv[u] >= 0 && gv[u] < G;
+      const bool load = live && mv[u] > 0.f;
       xv[u] = load ? to_f32<T>(x[r * F + f]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const float m = mv[u];
       const int g = gv[u];
-      if (m == 0.f || g < 0 || g >= G) continue;  // the same for every thread
-      if (do_count && tid == 0) cnt[g] += m;
-      if (!live) continue;
+      if (m == 0.f) continue;                      // the same for every thread
       const float v = xv[u];  // 0 unless m > 0: masked rows never load
       const float v2 = v * v;
+      const float top = (flags & 8) ? v2 * v2 : (flags & 4) ? v2 * v
+                                               : (flags & 2) ? v2 : v;
+      seen = fmaf(top, 0.f, seen);
+      if (g < 0 || g >= G) continue;               // the same for every thread
+      if (do_count && tid == 0) cnt[g] += m;
+      if (!live) continue;
       float* a = mine + static_cast<size_t>(g) * bf;
       if (flags & 1) { *a += m * v; a += stride; }
       if (flags & 2) { *a += m * v2; a += stride; }
@@ -123,13 +145,46 @@ __global__ void fold_split_kernel(const T* __restrict__ x,
       if (flags & 8) { *a += m * (v2 * v2); }
     }
   }
+  // rare path: walk the split again for this column and note, per power
+  // k, the gid of the first row with a non-finite v^k and whether such
+  // rows carry more than one gid
+  bool bad[4] = {false, false, false, false};
+  bool bad_multi[4] = {false, false, false, false};
+  int bad_gid[4] = {0, 0, 0, 0};
+  if (live && seen != seen) {
+    for (long long r = r0; r < r1; ++r) {
+      if (!(mask[r] > 0.f)) continue;
+      const int g = gids[r];
+      const float v = to_f32<T>(x[r * F + f]);
+      const float v2 = v * v;
+      const float pw[4] = {v, v2, v2 * v, v2 * v2};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (!(flags & (1 << k)) || isfinite(pw[k])) continue;
+        if (!bad[k]) {
+          bad[k] = true;
+          bad_gid[k] = g;
+        } else if (bad_gid[k] != g) {
+          bad_multi[k] = true;
+        }
+      }
+    }
+  }
   __syncthreads();
 
   if (live) {
-    for (int j = 0; j < n_wide; ++j)
-      for (int g = 0; g < G; ++g)
+    int j = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (!(flags & (1 << k))) continue;
+      for (int g = 0; g < G; ++g) {
+        float val = acc[j * stride + static_cast<size_t>(g) * bf + tid];
+        if (bad[k] && (bad_multi[k] || bad_gid[k] != g)) val = CUDART_NAN_F;
         out_s[((static_cast<size_t>(split) * n_wide + j) * G + g) * F + f] =
-            acc[j * stride + static_cast<size_t>(g) * bf + tid];
+            val;
+      }
+      ++j;
+    }
   }
   if (do_count)
     for (int i = tid; i < G; i += bf)

@@ -9,33 +9,31 @@ and the yardstick the kernel is held to on the card.
 
 Both take one flattened block ``x [R, F]``, int32 ``gids [R]`` and a float32
 row weight ``mask [R]`` (0/1 from the engine), and return fp32 ``count [G]``
-and ``s_k [G, F]`` for the requested names.  A row contributes iff its
-weight is non-zero and its gid lies in ``[0, G)``; the payload of a row
+and ``s_k [G, F]`` for the requested names.  A row adds to its group iff
+its weight is non-zero and its gid lies in ``[0, G)``; the payload of a row
 whose weight is not positive is zeroed before the powers are raised.
+
+Non-finite powers keep the reference's semantics (its one-hot contraction
+meets every other group with weight 0, and 0 * Inf = NaN): ``s_k[g, f]`` is
+NaN when a row with a positive weight and a gid other than ``g`` (in range
+or not) has a non-finite ``x^k`` at ``f``.  The count is never poisoned.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.core.chunk_model import SMEM_BYTES
+from repro_torch.kernels._build import CudaLibrary, check_launch
 
 #: canonical accumulator order (mirrors stats.SHARED_ACCUMULATORS — kept
 #: literal here so the kernel package does not import the engine)
 ACC_ORDER: Tuple[str, ...] = ("count", "s1", "s2", "s3", "s4")
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_fold.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 
 #: payload dtypes the kernel reads natively (bool is one byte, read as u8)
 _DTYPE_CODES = {
@@ -93,11 +91,13 @@ def fused_fold_torch(x: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
                      num_groups: int, names: Tuple[str, ...]
                      ) -> Dict[str, torch.Tensor]:
     """The kernel's function in plain PyTorch: ``index_add_`` in fp32 over
-    the contributing rows (no one-hot matmul, so no TF32 can enter)."""
+    the contributing rows (no one-hot matmul, so no TF32 can enter), then
+    NaN wherever another group's row has a non-finite power."""
     G = int(num_groups)
     m = mask.to(torch.float32)
     g = gids.to(torch.int64)
-    keep = (m != 0) & (g >= 0) & (g < G)
+    in_range = (g >= 0) & (g < G)
+    keep = (m != 0) & in_range
     mk, gk = m[keep], g[keep]
     out: Dict[str, torch.Tensor] = {}
     if "count" in names:
@@ -105,15 +105,27 @@ def fused_fold_torch(x: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
                                    device=x.device).index_add_(0, gk, mk)
     wide = [n for n in names if n != "count"]
     if wide:
-        v = x[keep].to(torch.float32)
-        v = torch.where((mk > 0)[:, None], v, torch.zeros((), device=v.device))
+        # only rows with a positive weight raise powers: the others are
+        # zeroed, add m * 0 to their group and are never non-finite
+        pos = m > 0
+        v = x[pos].to(torch.float32)
+        gp, wp, own = g[pos], m[pos][:, None], in_range[pos]
+        g_own = gp[own]
         v2 = v * v
-        powers = {"s1": v, "s2": v2, "s3": v2 * v, "s4": v2 * v2}
-        w = mk[:, None]
+        powers = {"s1": lambda: v, "s2": lambda: v2, "s3": lambda: v2 * v,
+                  "s4": lambda: v2 * v2}
+        nan = torch.full((), float("nan"), device=x.device)
         for n in wide:
-            out[n] = torch.zeros((G, x.shape[1]), dtype=torch.float32,
-                                 device=x.device).index_add_(
-                0, gk, powers[n] * w)
+            pw = powers[n]()
+            acc = torch.zeros((G, x.shape[1]), dtype=torch.float32,
+                              device=x.device).index_add_(
+                0, g_own, (pw * wp)[own])
+            bad = (~torch.isfinite(pw)).to(torch.int32)
+            in_group = torch.zeros((G, x.shape[1]), dtype=torch.int32,
+                                   device=x.device).index_add_(0, g_own,
+                                                               bad[own])
+            poisoned = bad.sum(0, dtype=torch.int32)[None, :] > in_group
+            out[n] = torch.where(poisoned, nan, acc)
     return out
 
 
@@ -121,61 +133,15 @@ def fused_fold_torch(x: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
 # the CUDA kernel: build, bind, launch
 # ----------------------------------------------------------------------
 
-class _Library:
-    """The built shared library, loaded once per process."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._lib: Optional[ctypes.CDLL] = None
-        #: compiler output of the build (``-Xptxas -v`` register report)
-        self.build_log = ""
-        self.build_seconds = 0.0
-        self.path: Optional[Path] = None
-
-    def get(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._load(self._build())
-            return self._lib
-
-    def _build(self) -> Path:
-        src = _SOURCE.read_bytes()
-        digest = hashlib.sha256(src).hexdigest()[:16]
-        out = _BUILD_DIR / f"fused_fold-{digest}.so"
-        self.path = out
-        if out.exists():
-            return out
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-        if not os.path.exists(nvcc):
-            raise RuntimeError(f"nvcc not found (looked on PATH and in "
-                               f"{cuda_home}/bin); cannot build {_SOURCE}")
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{self.build_log}")
-        os.replace(tmp, out)   # atomic: a racing process sees all or nothing
-        return out
-
-    @staticmethod
-    def _load(path: Path) -> ctypes.CDLL:
-        lib = ctypes.CDLL(str(path))
-        fn = lib.fused_fold_launch
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, i, p, p, ll, ll, i, i, i, i, i, ll, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-        return lib
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.fused_fold_launch
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, i, p, p, ll, ll, i, i, i, i, i, ll, p, p, p, p, p]
+    fn.restype = ctypes.c_int
 
 
-LIBRARY = _Library()
+LIBRARY = CudaLibrary(
+    Path(__file__).resolve().parent / "csrc" / "fused_fold.cu", _bind)
 
 
 def fused_fold_cuda(x: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
@@ -227,8 +193,7 @@ def fused_fold_cuda(x: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
             scratch_s.data_ptr() if scratch_s is not None else None,
             scratch_c.data_ptr() if scratch_c is not None else None,
             stream)
-    if err != 0:
-        raise RuntimeError(f"fused_fold kernel launch failed: CUDA error {err}")
+    check_launch(err, "fused_fold")
     fused_fold_cuda.launches += 1
     out: Dict[str, torch.Tensor] = {}
     if want_count:

@@ -1,0 +1,32 @@
+"""Public SSD-scan op in the model layout.
+
+Port of ``src/repro/kernels/ssm_scan/ops.py``.  Runs the CUDA kernel on
+CUDA tensors and the plain chunked scan (``ref.ssd_chunked_ref`` from a
+zero state) on CPU tensors.  No head-major copies and no padding: the
+kernel reads the model layout and pads the tail chunk itself.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.ssm_scan.kernel import ssd_scan_cuda
+from repro_torch.kernels.ssm_scan.ref import ssd_chunked_ref
+
+DEFAULT_CHUNK = 128
+
+
+def ssd_scan(
+    x: torch.Tensor,          # [B, L, H, P]  (dt folded in)
+    a: torch.Tensor,          # [B, L, H]
+    Bm: torch.Tensor,         # [B, L, N]     (shared across heads)
+    Cm: torch.Tensor,         # [B, L, N]
+    chunk: int = DEFAULT_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> ``(y [B, L, H, P], final_state [B, H, P, N])``; zero initial
+    state, fp32 outputs."""
+    if x.device.type == "cpu":
+        return ssd_chunked_ref(x, a, Bm, Cm, min(chunk, x.shape[1]))
+    return ssd_scan_cuda(x, a, Bm, Cm, chunk)

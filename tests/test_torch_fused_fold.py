@@ -70,6 +70,20 @@ def assert_pool_close(got, want, rtol, atol):
                                    rtol=rtol, atol=atol, err_msg=n)
 
 
+def assert_same_non_finite(got, ref, rtol, atol):
+    """NaN and ±Inf in the same places as the reference, and the finite
+    values close."""
+    for n, want in ref.items():
+        want = np.asarray(want, np.float64)
+        have = got[n].numpy().astype(np.float64)
+        for what in (np.isnan, np.isposinf, np.isneginf):
+            np.testing.assert_array_equal(what(have), what(want),
+                                          err_msg=f"{n} {what.__name__}")
+        fin = np.isfinite(want)
+        np.testing.assert_allclose(have[fin], want[fin], rtol=rtol,
+                                   atol=atol, err_msg=n)
+
+
 class TestAgainstReference:
     @pytest.mark.parametrize("G", [1, 7, 64])
     @pytest.mark.parametrize("kind", ["f32", "bf16", "i32"])
@@ -138,12 +152,48 @@ class TestAgainstReference:
                              num_groups=G, interpret=True)
         assert_pool_close(got, {n: np.asarray(v) for n, v in ref.items()},
                           *TOL["f32"])
-        # the port also keeps Inf in such rows out of every group (the
-        # reference's one-hot contraction turns it into NaN: 0 * Inf)
+        # Inf in such a row adds to no group, but the reference's one-hot
+        # contraction meets every group with weight 0: 0 * Inf = NaN in
+        # every group's power sums; the count stays finite
         x[(g < 0) | (g >= G)] = np.inf
         again = fused_fold(torch.from_numpy(x), None, torch.from_numpy(g), G)
-        for n in got:
-            assert torch.equal(got[n], again[n])
+        ref = ref_fused_fold(jnp.asarray(x), None, jnp.asarray(g),
+                             num_groups=G, interpret=True)
+        assert_same_non_finite(again, ref, *TOL["f32"])
+        assert torch.isnan(again["s1"]).all()
+        torch.testing.assert_close(again["count"], got["count"])
+
+    @pytest.mark.parametrize("G", [1, 2, 7])
+    @pytest.mark.parametrize("bad", ["inf", "-inf", "nan", "1e20"])
+    def test_non_finite_in_valid_rows(self, bad, G):
+        """A valid row whose power x^k is not finite (Inf/NaN payloads, or
+        x = 1e20, whose square overflows f32) poisons that feature of every
+        OTHER group with NaN, as the reference's one-hot contraction does
+        (0 * Inf); its own group takes the IEEE sum; gids in and out of
+        range alike."""
+        r = np.random.default_rng(G * 10 + len(bad))
+        bad = float(bad)
+        R, F = 41, 6
+        x = r.normal(size=(R, F)).astype(np.float32)
+        m = r.random(R) > 0.25
+        g = r.integers(0, G, R).astype(np.int32)
+        valid = np.nonzero(m)[0]
+        x[valid[0], 1] = bad                       # one bad voxel
+        x[valid[1], 3] = bad                       # two rows, maybe two groups
+        x[valid[2], 3] = bad
+        x[valid[3], 4] = bad
+        g[valid[3]] = G + 1                        # out of range
+        x[np.nonzero(~m)[0][0], 5] = bad           # masked off: no effect
+        got = fused_fold(torch.from_numpy(x), torch.from_numpy(m),
+                         torch.from_numpy(g), G)
+        ref = ref_fused_fold(jnp.asarray(x), jnp.asarray(m), jnp.asarray(g),
+                             num_groups=G, interpret=True)
+        ref = {n: np.asarray(v) for n, v in ref.items()}
+        assert_same_non_finite(got, ref, *TOL["f32"])
+        assert not np.isfinite(ref["s2"][:, 4]).any()
+        assert np.isfinite(ref["count"]).all()
+        assert not np.isfinite(ref["s2"][:, 1]).any()
+        assert np.isnan(ref["s2"][:, 1]).sum() >= G - 1
 
     def test_defaults_and_subset(self):
         x = np.random.default_rng(8).normal(size=(33, 9)).astype(np.float32)

@@ -266,3 +266,40 @@ def test_tiers_spill_and_faults_match_reference(tmp_path):
             np.testing.assert_allclose(b.astype(np.float64),
                                        a.astype(np.float64),
                                        rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("impls", [("pallas", "kernel"), ("xla", "torch")])
+def test_inf_voxel_in_selected_row_matches_reference(impls):
+    """One Inf voxel in a row that the predicate selects: the grouped Mean
+    and Moments carry NaN/Inf at the reference session's positions, on each
+    fold path."""
+    ref_impl, impl = impls
+    ref_table = ref_population(payload_shape=PAYLOAD, scale=0.05, seed=11)
+    age = ref_table.column("idx", "age")
+    row = int(np.nonzero((age >= 20.0) & (age < 60.0))[0][0])
+    data = ref_table.column("img", "data")[row:row + 1].copy()
+    data[0, 1, 2, 3] = np.inf
+    ref_table.upload(ref_table.keys[row:row + 1], {
+        "img": {"data": data},
+        "idx": {q: ref_table.column("idx", q)[row:row + 1]
+                for q in ("size", "age", "sex")}}, on_duplicate="overwrite")
+    table = port_table(ref_table)
+    assert np.isinf(table.column("img", "data")[row, 1, 2, 3])
+    ref = RefSession(ref_table, mesh=make_mesh((1,), ("data",)),
+                     fold_impl=ref_impl, fold_interpret=True)
+    port = GridSession(table, devices=["cpu"], fold_impl=impl)
+    want, _ = grouped_query(ref, R.MomentsProgram, R.MeanProgram, ref_pred)
+    got, _ = grouped_query(port, P.MomentsProgram, P.MeanProgram,
+                           age_sex_predicate)
+    w, g = leaves(want), leaves(got)
+    assert len(w) == len(g)
+    assert any(not np.isfinite(x).all() for x in w
+               if np.issubdtype(x.dtype, np.floating))
+    for a, b in zip(w, g):
+        if not np.issubdtype(a.dtype, np.floating):
+            np.testing.assert_array_equal(a, b)
+            continue
+        for what in (np.isnan, np.isposinf, np.isneginf):
+            np.testing.assert_array_equal(what(b), what(a))
+        fin = np.isfinite(a)
+        np.testing.assert_allclose(b[fin], a[fin], rtol=1e-4, atol=1e-3)

@@ -43,7 +43,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
-    assert int(lines["LOADED"]) >= 20
+    assert int(lines["LOADED"]) >= 60
     assert lines["BAD"] == "[]"
     import torch
     if not torch.cuda.is_available():
@@ -51,13 +51,18 @@ def test_port_imports_no_jax_and_no_reference():
 
 
 def test_no_jax_in_port_sources():
+    """No JAX, no reference package, no library attention, no compiled
+    plain versions.  ``chip_smoke.py`` alone may name PyTorch's
+    ``scaled_dot_product_attention``: it times it as K2's yardstick."""
     words = ("import jax", "from jax", "from repro.", "import repro.",
              "scaled_dot_product_attention", "torch.compile", "triton")
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += list((ROOT / "src" / "repro_torch").rglob("*.cu"))
-    files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 20
-    for f in files:
+    assert len(files) > 40
+    for f in files + [ROOT / "chip_smoke.py"]:
         text = f.read_text()
         for w in words:
+            if f.name == "chip_smoke.py" and \
+                    w == "scaled_dot_product_attention":
+                continue
             assert w not in text, f"{w!r} in {f}"

@@ -24,3 +24,27 @@ def reference_table_arrays(table) -> dict:
 def port_table(table):
     from repro_torch.convert import table_from_arrays
     return table_from_arrays(**reference_table_arrays(table))
+
+
+def port_model_config(cfg):
+    """The port's ``ModelConfig`` with the same fields as a reference one
+    (jnp dtypes become torch dtypes)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import config as C
+
+    dtypes = {np.dtype("float32"): torch.float32,
+              np.dtype("bfloat16"): torch.bfloat16,
+              np.dtype("float16"): torch.float16}
+    kw = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if f.name in ("dtype", "param_dtype"):
+            v = dtypes[np.dtype(v)]
+        elif dataclasses.is_dataclass(v):
+            v = getattr(C, type(v).__name__)(**dataclasses.asdict(v))
+        kw[f.name] = v
+    return C.ModelConfig(**kw)
