@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit.
-2. Builds the three CUDA kernels side by side (one nvcc each, sm_90a):
-   K1 fused fold, K2 flash attention, K3 SSD scan.
+2. Builds the four CUDA libraries side by side (one nvcc each, sm_90a):
+   K1 fused fold, K2 flash attention in its two variants (``wgmma`` for
+   bf16/f16 at head dims 64 and 128, ``simt`` for the rest), K3 SSD scan,
+   and logs each kernel's registers and spills.
 3. Holds K1 against its plain PyTorch version and the float64 NumPy oracle
    over bf16/f32/i32/bool payloads, G in {1, 7, 64, the kernel's limit},
    ragged shapes and NaN/Inf in masked-off rows; two launches must give
@@ -13,7 +15,8 @@
    must give the plain version's NaN/Inf positions and finite values.
 4. Holds K2 and K3 against their plain versions (and K3 against the
    literal recurrence) on the reference kernel tests' shapes and at the
-   serving shapes.
+   serving shapes; K2 in f32, bf16 and f16 at head dims 64 and 128 (and
+   qwen3-8b's GQA heads at D 128), checking which variant ran.
 5. Drives the population path at full size: the paper's 4,490-subject
    population (Table 3), one float32 91x109x91 MNI152 2 mm volume per
    subject, on ``GridSession(devices=["cuda:0"] * 4)`` with the paper's two
@@ -25,10 +28,14 @@
 6. Serves zamba2-1.2b at full width and depth (38 layers, random weights
    from a seed) through ``ServeEngine(device="cuda")``: 8 requests, 2048
    prompt tokens, 64 new tokens, greedy; counts K2/K3 launches per prefill
-   by wrapper and by the profiler's kernel names, and holds the prefill
-   and every decode step's logits against the same model run with the
-   kernels' plain versions on the same token stream.
-7. Prints one JSON line of kernel measurements, the card line, and last
+   by wrapper, by K2 variant and by the profiler's kernel names, and holds
+   the prefill and every decode step's logits against the same model run
+   with the kernels' plain versions on the same token stream (bf16
+   activations: K2's wgmma variant; fp32: its simt variant).
+7. Times K2's two variants, SDPA and the plain version in turns at the
+   serving call and at qwen3-8b's D=128 GQA shape, and K3 at its serving
+   call.
+8. Prints one JSON line of kernel measurements, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -227,11 +234,11 @@ def nonfinite_sweep():
 # phase 4: K2 and K3 against their plain versions
 # ----------------------------------------------------------------------
 
-F32, BF16 = torch.float32, torch.bfloat16
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 #: (B, H, Hkv, Sq, Skv, D, causal, window, dtype): tests/test_kernels.py's
 #: flash cases (GQA, MQA, ragged S, long KV, windows, bf16) and the
 #: serving shape, which runs on [B, S, H, D] views as the model passes it
-K2_CASES = [
+K2_BASE_CASES = [
     (1, 2, 2, 128, 128, 64, True, 0, F32),
     (2, 4, 2, 128, 128, 64, True, 0, F32),
     (1, 8, 1, 256, 256, 32, True, 0, F32),
@@ -244,28 +251,48 @@ K2_CASES = [
     (2, 4, 2, 96, 96, 64, True, 64, BF16),
     (8, 32, 32, 2048, 2048, 64, True, 0, BF16),
 ]
+#: every geometry above but the serving shape, in bf16 and f16 at head
+#: dims 64 and 128 (the wgmma variant), then qwen3-8b's GQA heads at the
+#: serving batch and prompt: 32 query heads over 8 KV heads of 128
+K2_GEOMETRIES = list(dict.fromkeys(
+    (B, H, Hkv, Sq, Skv, causal, window)
+    for B, H, Hkv, Sq, Skv, _, causal, window, _ in K2_BASE_CASES[:-1]))
+K2_CASES = K2_BASE_CASES + [
+    (B, H, Hkv, Sq, Skv, D, causal, window, dt)
+    for B, H, Hkv, Sq, Skv, causal, window in K2_GEOMETRIES
+    for dt in (BF16, F16) for D in (64, 128)
+    if (B, H, Hkv, Sq, Skv, D, causal, window, dt) not in K2_BASE_CASES
+] + [(8, 32, 8, 2048, 2048, 128, True, 0, BF16)]
 #: f32 at the reference tests' 2e-5, scaled by 5 for the card's exp and
-#: summation order; bf16 outputs at the reference's 2e-2
-K2_TOL = {F32: 1e-4, BF16: 2e-2}
+#: summation order; bf16 outputs at the reference's 2e-2, which also
+#: covers P rounded to bf16 (2^-9 relative) before the second product;
+#: f16 at 1e-2 (P rounded to 2^-12)
+K2_TOL = {F32: 1e-4, BF16: 2e-2, F16: 1e-2}
 
 
 def k2_sweep(gen):
-    worst = 0.0
+    worst = {}
     for B, H, Hkv, Sq, Skv, D, causal, window, dt in K2_CASES:
         q = torch.randn(B, Sq, H, D, generator=gen, device=DEV).to(dt)
         k = torch.randn(B, Skv, Hkv, D, generator=gen, device=DEV).to(dt)
         v = torch.randn(B, Skv, Hkv, D, generator=gen, device=DEV).to(dt)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        where = (B, H, Hkv, Sq, Skv, D, causal, window, dt)
+        ran = K2.variant(dt, D)
+        before = K2.flash_attention_cuda.by_variant[ran]
         got = K2.flash_attention_cuda(q, k, v, D ** -0.5, causal, window)
+        check(K2.flash_attention_cuda.by_variant[ran] == before + 1,
+              f"K2 {where} did not run the {ran} variant")
         want = attention_ref(q, k, v, D ** -0.5, causal, window)
         torch.cuda.synchronize()
         check(got.dtype == dt and got.shape == want.shape, "K2 output")
         err = float((got.float() - want.float()).abs().max())
         tol = K2_TOL[dt]
         check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-              f"K2 vs plain {(B, H, Hkv, Sq, Skv, D, causal, window, dt)}:"
-              f" max err {err:.3g}")
-        worst = max(worst, err)
+              f"K2 ({ran}) vs plain {where}: max err {err:.3g}")
+        key = (ran, str(dt).replace("torch.", ""))
+        n, w = worst.get(key, (0, 0.0))
+        worst[key] = (n + 1, max(w, err))
     return len(K2_CASES), worst
 
 
@@ -716,8 +743,10 @@ def device_breakdown(fn):
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = evt.name.lower()
-        if "flash_fwd_kernel" in name:
+        if "flash_wgmma_kernel" in name:
             cat = "K2"
+        elif "flash_fwd_kernel" in name:
+            cat = "K2 simt"
         elif "ssd_scan_kernel" in name:
             cat = "K3"
         elif "memcpy" in name or "memset" in name:
@@ -758,17 +787,20 @@ def serve_path():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    K2.flash_attention_cuda.launches = 0
+    K2.reset_counts()
     K3.ssd_scan_cuda.launches = 0
     res = engine.generate(prompts, SERVE_NEW)
     out["launches"] = {"K2": K2.flash_attention_cuda.launches,
                        "K3": K3.ssd_scan_cuda.launches}
+    out["k2_variants"] = dict(K2.flash_attention_cuda.by_variant)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     kinds = cfg.layer_kinds()
     want = {"K2": kinds.count("attn_shared") + kinds.count("attn"),
             "K3": kinds.count("ssm")}          # 6 and 32 for zamba2-1.2b
     check(out["launches"] == want,
           f"launches per prefill {out['launches']} != {want}")
+    check(out["k2_variants"] == {"wgmma": want["K2"], "simt": 0},
+          f"bf16 prefill K2 variants {out['k2_variants']}")
     check(res.tokens.shape == (SERVE_B, SERVE_NEW)
           and 0 <= res.tokens.min() and res.tokens.max() < cfg.vocab,
           "generated tokens")
@@ -780,7 +812,8 @@ def serve_path():
     toks = torch.as_tensor(res.tokens, dtype=torch.int64, device=DEV)
     wall, secs, calls, top = device_breakdown(
         lambda: engine.model.prefill(engine.params, pr))
-    check(calls.get("K2") == want["K2"] and calls.get("K3") == want["K3"],
+    check(calls.get("K2") == want["K2"] and calls.get("K3") == want["K3"]
+          and "K2 simt" not in calls,
           f"profiler kernel names per prefill: {calls}")
     out["prefill_trace"] = (wall, secs, calls, top)
     _, caches = engine.model.prefill(engine.params, pr)
@@ -792,20 +825,28 @@ def serve_path():
                                          caches))
     del caches
 
-    counts = (K2.flash_attention_cuda.launches, K3.ssd_scan_cuda.launches)
     run = (engine.model, cfg, engine.params, engine.capacity, pr, toks)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = cast_for_compute(cfg32, engine.params, DEV)
     run32 = (build_model(cfg32), cfg32, params32, engine.capacity, pr, toks)
-    kern, kern32 = teacher_forced(*run), teacher_forced(*run32)
+    K2.reset_counts()
+    kern = teacher_forced(*run)
+    bf16_variants = dict(K2.flash_attention_cuda.by_variant)
+    K2.reset_counts()
+    kern32 = teacher_forced(*run32)
+    out["f32_k2_variants"] = dict(K2.flash_attention_cuda.by_variant)
+    check(bf16_variants == {"wgmma": want["K2"], "simt": 0}
+          and out["f32_k2_variants"] == {"wgmma": 0, "simt": want["K2"]},
+          f"teacher-forced K2 variants: bf16 {bf16_variants}, fp32 "
+          f"{out['f32_k2_variants']}")
+    K2.reset_counts()
+    k3_before = K3.ssd_scan_cuda.launches
     with plain_kernels():
         plain, plain32 = teacher_forced(*run), teacher_forced(*run32)
     del params32
-    after = (K2.flash_attention_cuda.launches, K3.ssd_scan_cuda.launches)
-    check(after == (counts[0] + 2 * want["K2"], counts[1] + 2 * want["K3"]),
-          f"plain-kernel runs launched a kernel: {counts} -> {after}")
-    K2.flash_attention_cuda.launches, K3.ssd_scan_cuda.launches = \
-        out["launches"]["K2"], out["launches"]["K3"]
+    check(K2.flash_attention_cuda.launches == 0
+          and K3.ssd_scan_cuda.launches == k3_before,
+          "plain-kernel runs launched a kernel")
     check(all(bool(torch.isfinite(t).all())
               for t in (kern, plain, kern32, plain32)), "non-finite logits")
     out["logit_max_err"], out["logit_mean_err"] = gaps(kern, plain)
@@ -836,27 +877,59 @@ def serve_path():
     return out
 
 
-def measure_k2(gen):
-    """K2 at the serving call: q, k, v [8, 32, 2048, 64] bf16 causal, as
-    [B, S, H, D] views."""
-    B, S, H, D = SERVE_B, SERVE_PROMPT, SERVE_HEADS, 64
-    q, k, v = (torch.randn(B, S, H, D, generator=gen, device=DEV)
-               .to(BF16).transpose(1, 2) for _ in range(3))
+#: K2's timed calls: zamba2-1.2b's prefill attention, and qwen3-8b's
+#: heads (32 query heads over 8 KV heads of 128) at the same batch and
+#: prompt; (B, H, Hkv, S, D), bf16, causal, as [B, S, H, D] views
+K2_TIMED = {"zamba2": (SERVE_B, SERVE_HEADS, SERVE_HEADS, SERVE_PROMPT, 64),
+            "qwen3_d128": (SERVE_B, 32, 8, SERVE_PROMPT, 128)}
+
+
+def measure_k2(gen, B, H, Hkv, S, D):
+    """K2's two variants, SDPA and the plain version on one bf16 causal
+    call, timed in turns (wgmma, simt, SDPA, plain, then backwards); each
+    time is the mean of its two turns."""
+    q = torch.randn(B, S, H, D, generator=gen, device=DEV).to(BF16)
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=DEV).to(BF16)
+            for _ in range(2))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     scale = D ** -0.5
-    before = K2.flash_attention_cuda.launches
-    got = K2.flash_attention_cuda(q, k, v, scale)
+    counts = (K2.flash_attention_cuda.launches,
+              dict(K2.flash_attention_cuda.by_variant))
     want = attention_ref(q, k, v, scale)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    ms = event_ms(lambda: K2.flash_attention_cuda(q, k, v, scale), 10)
-    plain_ms = event_ms(lambda: attention_ref(q, k, v, scale), 3)
+    errs = {}
+    for name, fn in (("wgmma", K2.flash_attention_wgmma),
+                     ("simt", K2.flash_attention_simt)):
+        got = fn(q, k, v, scale)
+        torch.cuda.synchronize()
+        errs[name] = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), rtol=K2_TOL[BF16],
+                             atol=K2_TOL[BF16]),
+              f"K2 {name} at {(B, H, Hkv, S, D)}: max err {errs[name]:.3g}")
+    del got, want
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = event_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale),
-                          10)
-    K2.flash_attention_cuda.launches = before     # comparison launches
+    runs = {
+        "wgmma": (lambda: K2.flash_attention_wgmma(q, k, v, scale), 20),
+        "simt": (lambda: K2.flash_attention_simt(q, k, v, scale), 5),
+        "sdpa": (lambda: sdpa(q, k, v, is_causal=True, scale=scale,
+                              enable_gqa=Hkv != H), 20),
+        "plain": (lambda: attention_ref(q, k, v, scale), 3),
+    }
+    turns = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            fn, reps = runs[name]
+            turns[name].append(event_ms(fn, reps))
+    # comparison launches
+    K2.flash_attention_cuda.launches, K2.flash_attention_cuda.by_variant = \
+        counts
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
     flops = 4 * B * H * D * (S * (S + 1) // 2)    # the causal pairs only
-    nbytes = 4 * B * S * H * D * 2                # q, k, v read, o written
-    return bound_entry(err, ms, plain_ms, library_ms, flops, nbytes)
+    nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * 2   # q, o; k, v
+    entry = {name: bound_entry(errs[name], ms[name], ms["plain"],
+                               ms["sdpa"], flops, nbytes)
+             for name in ("wgmma", "simt")}
+    entry["turns"] = turns
+    return entry
 
 
 def measure_k3(gen):
@@ -905,7 +978,8 @@ def report_serve(sv, card):
         f"prefill {sv['prefill_s']:.3f} s, decode {sv['decode_tok_s']:.1f} "
         f"tok/s ({sv['decode_s']:.3f} s for {SERVE_NEW - 1} steps), peak "
         f"device memory {sv['peak_gb']:.1f} GB; launches per prefill "
-        f"{sv['launches']}")
+        f"{sv['launches']}, K2 by variant {sv['k2_variants']} (fp32 "
+        f"activations: {sv['f32_k2_variants']})")
     for what in ("prefill", "decode"):
         w, secs, calls, top = sv[f"{what}_trace"]
         busy = sum(secs.values())
@@ -931,7 +1005,7 @@ def report_serve(sv, card):
 def build_kernels():
     """Start every kernel's nvcc at once, then wait on each."""
     t0 = time.perf_counter()
-    libs = (K.LIBRARY, K2.LIBRARY, K3.LIBRARY)
+    libs = (K.LIBRARY, K2.WGMMA_LIBRARY, K2.LIBRARY, K3.LIBRARY)
     for lib in libs:
         lib.start()
     for lib in libs:
@@ -959,7 +1033,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     card = card_line()
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     log(f"card {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     build_kernels()
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -974,7 +1048,9 @@ def main() -> int:
     t0 = time.perf_counter()
     n2, worst2 = k2_sweep(gen)
     n3, worst3 = k3_sweep(gen)
-    log(f"K2 sweep: {n2} cases vs plain, max |kernel-plain| {worst2:.3g}; "
+    log(f"K2 sweep: {n2} cases vs plain, " + ", ".join(
+        f"{ran} {dt}: {n} cases, max |kernel-plain| {w:.3g}"
+        for (ran, dt), (n, w) in sorted(worst2.items())) + "; "
         f"K3 sweep: {n3} cases vs plain (and the recurrence on the small "
         f"ones), max |kernel-plain| {worst3:.3g}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1023,18 +1099,27 @@ def main() -> int:
     sv = serve_path()
     report_serve(sv, card)
 
-    k2m = measure_k2(gen)
+    k2m = {tag: measure_k2(gen, *shape) for tag, shape in K2_TIMED.items()}
     k3m = measure_k3(gen)
-    for tag, km, shape in (("K2", k2m, "q,k,v [8,32,2048,64] bf16 causal"),
-                           ("K3", k3m, "x [8,2048,64,64] f32, B/C bf16, "
-                                       "chunk 128")):
-        lib = (f"{km['library_ms']:.3f} ms" if km["library_ms"] is not None
-               else "none (no single PyTorch call computes it)")
-        log(f"{tag} at {shape} on {card}: {km['ms']:.3f} ms, bound "
-            f"{km['bound_ms']:.4f} ms ({km['bound_by']}; "
-            f"{km['flops'] / 1e9:.1f} GFLOP, {km['bytes'] / 1e6:.1f} MB), "
-            f"plain {km['plain_ms']:.3f} ms, library {lib}, max "
-            f"|kernel-plain| {km['max_abs_err']:.3g}")
+    for tag, (B, H, Hkv, S, D) in K2_TIMED.items():
+        sdpa_turns = ", ".join(f"{t:.4f}" for t in k2m[tag]["turns"]["sdpa"])
+        for var in ("wgmma", "simt"):
+            km = k2m[tag][var]
+            turns = ", ".join(f"{t:.4f}" for t in k2m[tag]["turns"][var])
+            log(f"K2 {var} at {tag} q [{B},{H},{S},{D}], k/v "
+                f"[{B},{Hkv},{S},{D}] bf16 causal on {card}: "
+                f"{km['ms']:.4f} ms (turns {turns}), bound "
+                f"{km['bound_ms']:.4f} ms ({km['bound_by']}; "
+                f"{km['flops'] / 1e9:.1f} GFLOP, {km['bytes'] / 1e6:.1f} "
+                f"MB), SDPA {km['library_ms']:.4f} ms (turns {sdpa_turns}),"
+                f" plain {km['plain_ms']:.3f} ms, max |kernel-plain| "
+                f"{km['max_abs_err']:.3g}")
+    log(f"K3 at x [8,2048,64,64] f32, B/C bf16, chunk 128 on {card}: "
+        f"{k3m['ms']:.3f} ms, bound {k3m['bound_ms']:.4f} ms "
+        f"({k3m['bound_by']}; {k3m['flops'] / 1e9:.1f} GFLOP, "
+        f"{k3m['bytes'] / 1e6:.1f} MB), plain {k3m['plain_ms']:.3f} ms, "
+        f"library none (no single PyTorch call computes it), max "
+        f"|kernel-plain| {k3m['max_abs_err']:.3g}")
 
     print(json.dumps({"kernels": [
         kernel_line("fused_fold",
@@ -1043,9 +1128,14 @@ def main() -> int:
                     m["launches"], b),
         kernel_line("flash_attention",
                     "src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention_wgmma.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:33",
+                    sv["k2_variants"]["wgmma"], k2m["zamba2"]["wgmma"]),
+        kernel_line("flash_attention_simt",
+                    "src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
                     "src/repro/kernels/flash_attention/kernel.py:33",
-                    sv["launches"]["K2"], k2m),
+                    sv["f32_k2_variants"]["simt"], k2m["zamba2"]["simt"]),
         kernel_line("ssd_scan",
                     "src/repro_torch/kernels/ssm_scan/csrc/ssd_scan.cu",
                     "src/repro/kernels/ssm_scan/kernel.py:29",
@@ -1053,7 +1143,7 @@ def main() -> int:
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

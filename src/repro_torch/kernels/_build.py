@@ -1,11 +1,15 @@
 """Build a kernel's CUDA source with ``nvcc`` at first use and bind it.
 
-Each kernel package keeps one ``csrc/*.cu`` file with a plain C interface.
-:class:`CudaLibrary` compiles it for ``sm_90a`` into ``build/kernels/`` at
-the repository root, named by a hash of the source so an edit rebuilds,
-and loads it with ``ctypes``.  :meth:`CudaLibrary.start` only launches the
-compiler, so a caller that needs several kernels starts every build first
-and then waits on each (``get``): the builds run side by side.
+Each kernel package keeps its CUDA sources under ``csrc/``; each library is
+one ``.cu`` file there with a plain C interface.  :class:`CudaLibrary`
+compiles it for ``sm_90a`` into ``build/kernels/`` at the repository root
+and loads it with ``ctypes``.  The library's file name carries a hash of
+every file under its ``csrc/`` and of the compiler flags, so an edited
+source, header or flag never reuses a stale build.  A library may carry
+flags of its own (include paths, link libraries) beside the common ones.
+:meth:`CudaLibrary.start` only launches the compiler, so a caller that
+needs several kernels starts every build first and then waits on each
+(``get``): the builds run side by side.
 """
 
 from __future__ import annotations
@@ -18,18 +22,25 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+#: flags every library is compiled with
+COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class CudaLibrary:
     """One kernel's shared library, built and loaded once per process.
 
-    ``bind`` sets ``argtypes``/``restype`` on the loaded ``ctypes.CDLL``."""
+    ``bind`` sets ``argtypes``/``restype`` on the loaded ``ctypes.CDLL``;
+    ``extra_flags`` follow the source on the nvcc command line (so link
+    libraries such as ``-lcuda`` come after it)."""
 
-    def __init__(self, source: Path, bind: Callable[[ctypes.CDLL], None]):
+    def __init__(self, source: Path, bind: Callable[[ctypes.CDLL], None],
+                 extra_flags: Sequence[str] = ()):
         self.source = Path(source)
+        self.extra_flags = tuple(extra_flags)
         self._bind = bind
         self._lock = threading.Lock()
         self._lib: Optional[ctypes.CDLL] = None
@@ -41,14 +52,25 @@ class CudaLibrary:
         self.build_seconds = 0.0
         self.path: Optional[Path] = None
 
-    def _target(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
+    def flags(self) -> List[str]:
+        """The compiler flags, without the source and output paths."""
+        return [*COMMON_FLAGS, *self.extra_flags]
+
+    def target(self) -> Path:
+        """Where the build goes: named by a hash of every file under the
+        source's directory (path and bytes) and of :meth:`flags`."""
+        h = hashlib.sha256()
+        root = self.source.parent
+        for f in sorted(p for p in root.rglob("*") if p.is_file()):
+            h.update(f.relative_to(root).as_posix().encode() + b"\0")
+            h.update(f.read_bytes() + b"\0")
+        h.update("\0".join(self.flags()).encode())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def _start_locked(self) -> None:
         if self._lib is not None or self._proc is not None:
             return
-        self.path = self._target()
+        self.path = self.target()
         if self.path.exists():
             return
         cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
@@ -58,9 +80,8 @@ class CudaLibrary:
                                f"{cuda_home}/bin); cannot build {self.source}")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self._tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(self._tmp), str(self.source)]
+        cmd = [nvcc, *COMMON_FLAGS, "-o", str(self._tmp), str(self.source),
+               *self.extra_flags]
         self._t0 = time.perf_counter()
         self._proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)

@@ -1,50 +1,106 @@
-"""The flash-attention CUDA kernel: build, bind, launch.
+"""The flash-attention CUDA kernels: build, bind, dispatch, launch.
 
 Port of ``src/repro/kernels/flash_attention/kernel.py``.  The Pallas kernel
-``_flash_kernel`` becomes ``csrc/flash_attention.cu`` (CUDA C++ for
-``sm_90a``), built with ``nvcc`` at first use into ``build/kernels/`` and
-bound through ``ctypes``.  The kernel takes any batch, head and sequence
-strides, so the model hands it ``[B, S, H, D]`` activations as
-``[B, H, S, D]`` views without a copy, and it masks its own ragged edges:
-nothing is padded.  Its plain version is ``ref.attention_ref``.
+``_flash_kernel`` becomes two hand-written CUDA C++ kernels for ``sm_90a``,
+each built with ``nvcc`` at first use into ``build/kernels/`` and bound
+through ``ctypes``:
+
+- ``csrc/flash_attention_wgmma.cu`` ("wgmma") takes bf16 and f16 at head
+  dims 64 and 128: TMA-fed ``wgmma`` tiles on the tensor cores;
+- ``csrc/flash_attention.cu`` ("simt") takes everything else the op
+  accepts (f32, and head dims 16 and 32): fp32 products on the CUDA cores.
+
+:func:`variant` is the rule between them.  It is a dispatch between two
+kernels, not a fallback: a failed build or launch raises.  Both take any
+batch, head and sequence strides, so the model hands them ``[B, S, H, D]``
+activations as ``[B, H, S, D]`` views without a copy, and both mask their
+own ragged edges: nothing is padded.  The plain version is
+``ref.attention_ref``.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels._build import CudaLibrary, check_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: head dims the kernel is instantiated for
+#: head dims the simt kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
+#: dtypes and head dims the wgmma kernel takes
+WGMMA_DTYPES = (torch.bfloat16, torch.float16)
+WGMMA_HEAD_DIMS = (64, 128)
+VARIANTS = ("wgmma", "simt")
+_CSRC = Path(__file__).resolve().parent / "csrc"
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    fn = lib.flash_attention_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, ctypes.c_float, i, i,
-                   p]
-    fn.restype = ctypes.c_int
+def _binder(name: str):
+    def bind(lib: ctypes.CDLL) -> None:
+        fn = getattr(lib, name)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, ctypes.c_float,
+                       i, i, p]
+        fn.restype = ctypes.c_int
+    return bind
 
 
-LIBRARY = CudaLibrary(
-    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu", _bind)
+LIBRARY = CudaLibrary(_CSRC / "flash_attention.cu",
+                      _binder("flash_attention_launch"))
+#: links libcuda for ``cuTensorMapEncodeTiled``
+WGMMA_LIBRARY = CudaLibrary(_CSRC / "flash_attention_wgmma.cu",
+                            _binder("flash_attention_wgmma_launch"),
+                            extra_flags=("-lcuda",))
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         scale: float, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
-    """Launch the kernel on the current stream (no synchronisation).
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel runs a call: ``"wgmma"`` for bf16/f16 at head dim 64
+    or 128, ``"simt"`` otherwise."""
+    if dtype in WGMMA_DTYPES and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
 
-    ``q [B, H, Sq, D]``, ``k, v [B, Hkv, Skv, D]`` on one CUDA device, one
-    dtype (f32, bf16 or f16), unit stride along D; returns ``o`` shaped and
-    strided like ``q``.  Raises on anything else, and when the launch
-    reports an error.  Each launch bumps ``flash_attention_cuda.launches``.
-    """
+
+def tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """The (batch, head, sequence) element strides under which a
+    ``[B, H, S, D]`` operand can be described to TMA as it lies, or None
+    when it must be copied first.
+
+    TMA needs a 16-byte aligned base, unit stride along D, and the other
+    strides positive multiples of 16 bytes.  A dimension of size 1 is never
+    stepped along, so its stride is replaced by D's row length, which
+    always qualifies (D is 64 or 128)."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return None
+    es = t.element_size()
+    out = []
+    for dim in range(3):
+        n, s = t.shape[dim], t.stride(dim)
+        if n == 1:
+            s = t.shape[-1]
+        elif s <= 0 or (s * es) % 16:
+            return None
+        out.append(s)
+    return tuple(out)
+
+
+def wgmma_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """``(q, k, v, o, strides)`` as the wgmma kernel takes them: each input
+    itself, or a contiguous copy where :func:`tma_strides` refuses it; a
+    fresh output with q's strides (contiguous when q is not dense with
+    unit stride along D); and the 12 element strides of the launch:
+    (batch, head, sequence) of q, k, v and o."""
+    o = (torch.empty_like(q) if q.stride(-1) == 1
+         else torch.empty(q.shape, dtype=q.dtype, device=q.device))
+    q, k, v = (t if tma_strides(t) else t.contiguous() for t in (q, k, v))
+    strides = [s for t in (q, k, v) for s in tma_strides(t)]
+    return q, k, v, o, strides + list(o.stride()[:3])
+
+
+def _check(q, k, v) -> Tuple[int, int, int, int, int, int, int]:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
                          f"got {q.device}")
@@ -66,20 +122,86 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    o = torch.empty_like(q)      # keeps q's strides: a [B,S,H,D] view stays one
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, o) for s in t.stride()[:3]))
-    lib = LIBRARY.get()
+    return code, B, H, Hkv, Sq, Skv, D
+
+
+def _launch(lib: CudaLibrary, name: str, q, k, v, o, strides, code, B, H,
+            Hkv, Sq, Skv, D, scale, causal, window) -> None:
+    st = (ctypes.c_longlong * 12)(*strides)
+    fn = getattr(lib.get(), name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), code,
-            B, H, Hkv, Sq, Skv, D, ctypes.addressof(strides), float(scale),
-            int(bool(causal)), int(window), stream)
-    check_launch(err, "flash_attention")
-    flash_attention_cuda.launches += 1
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 code, B, H, Hkv, Sq, Skv, D, ctypes.addressof(st),
+                 float(scale), int(bool(causal)), int(window), stream)
+    if err >= 1000:
+        raise RuntimeError(f"flash_attention {name}: cuTensorMapEncodeTiled "
+                           f"failed with CUresult {err - 1000}")
+    check_launch(err, f"flash_attention ({name})")
+
+
+def flash_attention_simt(q, k, v, scale: float, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """Launch ``csrc/flash_attention.cu`` (any dtype the op takes, head dims
+    16-128).  Bumps ``flash_attention_cuda.launches`` and its ``"simt"``
+    count."""
+    code, B, H, Hkv, Sq, Skv, D = _check(q, k, v)
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    o = torch.empty_like(q)      # keeps q's strides: a [B,S,H,D] view stays one
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    _launch(LIBRARY, "flash_attention_launch", q, k, v, o, strides, code, B,
+            H, Hkv, Sq, Skv, D, scale, causal, window)
+    _count("simt")
     return o
 
 
-flash_attention_cuda.launches = 0
+def flash_attention_wgmma(q, k, v, scale: float, causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """Launch ``csrc/flash_attention_wgmma.cu`` (bf16/f16, head dim 64 or
+    128).  An operand TMA cannot read as it lies is copied first
+    (:func:`wgmma_operands`); the output keeps q's strides.  Bumps
+    ``flash_attention_cuda.launches`` and its ``"wgmma"`` count."""
+    code, B, H, Hkv, Sq, Skv, D = _check(q, k, v)
+    if q.dtype not in WGMMA_DTYPES or D not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"the wgmma kernel takes {WGMMA_DTYPES} at head "
+                         f"dims {WGMMA_HEAD_DIMS}, got {q.dtype}, D={D}")
+    if Sq < 1 or Skv < 1:
+        raise ValueError(f"empty sequence: Sq={Sq}, Skv={Skv}")
+    q, k, v, o, strides = wgmma_operands(q, k, v)
+    _launch(WGMMA_LIBRARY, "flash_attention_wgmma_launch", q, k, v, o,
+            strides, code, B, H, Hkv, Sq, Skv, D, scale, causal, window)
+    _count("wgmma")
+    return o
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """Launch the kernel :func:`variant` picks, on the current stream (no
+    synchronisation).
+
+    ``q [B, H, Sq, D]``, ``k, v [B, Hkv, Skv, D]`` on one CUDA device, one
+    dtype (f32, bf16 or f16); returns ``o`` shaped like ``q`` and, where q
+    is dense, strided like it.  Raises on anything else, and when the
+    build or the launch fails.  ``flash_attention_cuda.launches`` counts
+    every launch, ``flash_attention_cuda.by_variant`` each kernel's."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
+                         f"got {q.device}")
+    if variant(q.dtype, int(q.shape[-1])) == "wgmma":
+        return flash_attention_wgmma(q, k, v, scale, causal, window)
+    return flash_attention_simt(q, k, v, scale, causal, window)
+
+
+def _count(name: str) -> None:
+    flash_attention_cuda.launches += 1
+    flash_attention_cuda.by_variant[name] += 1
+
+
+def reset_counts() -> None:
+    """Set every launch count to 0."""
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+reset_counts()

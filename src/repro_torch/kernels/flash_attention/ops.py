@@ -1,9 +1,10 @@
 """Public flash-attention op: ``[B, H, S, D]`` layout, GQA, sliding window.
 
-Port of ``src/repro/kernels/flash_attention/ops.py``.  Runs the CUDA kernel
-on CUDA tensors and the plain version (``ref.attention_ref``) on CPU
-tensors.  Unlike the Pallas wrapper it pads nothing: the kernel masks
-keys past ``Skv`` and skips query rows past ``Sq`` itself.
+Port of ``src/repro/kernels/flash_attention/ops.py``.  Runs a CUDA kernel
+(``kernel.variant`` picks which) on CUDA tensors and the plain version
+(``ref.attention_ref``) on CPU tensors.  Unlike the Pallas wrapper it pads
+nothing: the kernels mask keys past ``Skv`` and skip query rows past
+``Sq`` themselves.
 """
 
 from __future__ import annotations

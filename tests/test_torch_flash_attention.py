@@ -21,6 +21,7 @@ from repro.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref as ref_attention,
 )
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as K2  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_cuda,
 )
@@ -94,3 +95,113 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(t) for t in inputs(1, 2, 2, 8, 8, 16, 0))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k, v, 0.25)
+
+
+# ---- which CUDA kernel a call takes, and what TMA can read as it lies ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_dispatch_rule(dtype, D):
+    """bf16/f16 at head dims 64 and 128 take the wgmma kernel; f32 and the
+    narrow head dims keep the simt kernel."""
+    wgmma = dtype != torch.float32 and D in (64, 128)
+    assert K2.variant(dtype, D) == ("wgmma" if wgmma else "simt")
+
+
+def test_every_model_head_dim_in_bf16_takes_the_wgmma_kernel():
+    from repro_torch.configs import __path__ as cfg_path
+    import importlib
+    import pkgutil
+    dims = set()
+    for m in pkgutil.iter_modules(cfg_path):
+        cfg = importlib.import_module(f"repro_torch.configs.{m.name}").full()
+        dims.add(cfg.head_dim)
+    assert dims and all(K2.variant(torch.bfloat16, d) == "wgmma"
+                        for d in dims), dims
+
+
+def bshd_view(B, H, S, D, dtype=torch.bfloat16, pad=0, offset=0):
+    """A [B, H, S, D] view of [B, S, H, D + pad] storage, starting
+    ``offset`` elements in."""
+    flat = torch.zeros(B * S * H * (D + pad) + offset, dtype=dtype)
+    t = flat[offset:].view(B, S, H, D + pad)[..., :D]
+    return t.transpose(1, 2)
+
+
+@pytest.mark.parametrize("make,want", [
+    # contiguous [B, H, S, D]
+    (lambda: torch.zeros(2, 4, 96, 64, dtype=torch.bfloat16),
+     (4 * 96 * 64, 96 * 64, 64)),
+    # the model's [B, S, H, D] activations as [B, H, S, D] views
+    (lambda: bshd_view(2, 4, 96, 64), (96 * 4 * 64, 64, 4 * 64)),
+    (lambda: bshd_view(2, 8, 40, 128, torch.float16),
+     (40 * 8 * 128, 128, 8 * 128)),
+    # size-1 dims: their strides are never stepped, so D stands in
+    (lambda: torch.zeros(1, 1, 96, 64, dtype=torch.bfloat16)
+     .as_strided((1, 1, 96, 64), (3, 5, 64, 1)), (64, 64, 64)),
+    # padded rows, still 16-byte multiples: (64 + 8) * 2 = 144 bytes
+    (lambda: bshd_view(2, 1, 24, 64, pad=8), (24 * 72, 64, 72)),
+    # rows of (64 + 4) * 2 = 136 bytes: not a multiple of 16
+    (lambda: bshd_view(2, 2, 24, 64, pad=4), None),
+    # a base 2 bytes off 16-byte alignment
+    (lambda: bshd_view(1, 2, 24, 64, offset=1), None),
+    # D not unit stride
+    (lambda: torch.zeros(1, 2, 64, 24, dtype=torch.bfloat16)
+     .transpose(2, 3), None),
+    # K/V broadcast over heads: a zero stride
+    (lambda: torch.zeros(2, 1, 32, 64, dtype=torch.bfloat16)
+     .expand(2, 4, 32, 64), None),
+])
+def test_tma_strides(make, want):
+    assert K2.tma_strides(make()) == want
+
+
+def test_wgmma_operands_take_the_model_views_as_they_lie():
+    q, k, v = (bshd_view(2, h, 40, 64) for h in (8, 2, 2))
+    q2, k2, v2, o, strides = K2.wgmma_operands(q, k, v)
+    assert q2 is q and k2 is k and v2 is v
+    assert o.shape == q.shape and o.stride() == q.stride()
+    assert strides == [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                       *q.stride()[:3]]
+
+
+def test_wgmma_operands_copy_only_what_tma_cannot_read():
+    q = bshd_view(2, 4, 40, 64)
+    k = bshd_view(2, 2, 40, 64, pad=4)          # 136-byte rows
+    v = bshd_view(2, 2, 40, 64, offset=1)       # misaligned base
+    for t in (q, k, v):
+        t.copy_(torch.randn(t.shape))
+    q2, k2, v2, o, strides = K2.wgmma_operands(q, k, v)
+    assert q2 is q
+    for got, orig in ((k2, k), (v2, v)):
+        assert got is not orig and got.is_contiguous()
+        assert torch.equal(got, orig)
+        assert K2.tma_strides(got) == got.stride()[:3]
+    assert strides[3:9] == [*k2.stride()[:3], *v2.stride()[:3]]
+    assert o.stride() == q.stride()
+
+
+def test_wgmma_output_is_contiguous_when_q_has_no_unit_stride_along_d():
+    q = torch.zeros(1, 2, 64, 40, dtype=torch.bfloat16).transpose(2, 3)
+    k = v = torch.zeros(1, 2, 40, 64, dtype=torch.bfloat16)
+    q2, _, _, o, strides = K2.wgmma_operands(q, k, v)
+    assert q2.is_contiguous() and o.is_contiguous()
+    assert strides[9:] == list(o.stride()[:3])
+
+
+@pytest.mark.parametrize("fn", [K2.flash_attention_wgmma,
+                                K2.flash_attention_simt])
+def test_each_variant_refuses_cpu_tensors(fn):
+    q, k, v = (torch.from_numpy(t).to(torch.bfloat16)
+               for t in inputs(1, 2, 2, 8, 8, 64, 0))
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(q, k, v, 0.125)
+
+
+def test_reset_counts():
+    K2.flash_attention_cuda.launches = 5
+    K2.flash_attention_cuda.by_variant["wgmma"] = 3
+    K2.reset_counts()
+    assert K2.flash_attention_cuda.launches == 0
+    assert K2.flash_attention_cuda.by_variant == {"wgmma": 0, "simt": 0}
