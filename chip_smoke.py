@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit.
-2. Builds the four CUDA libraries side by side (one nvcc each, sm_90a):
+2. Builds the five CUDA libraries side by side (one nvcc each, sm_90a):
    K1 fused fold, K2 flash attention in its two variants (``wgmma`` for
-   bf16/f16 at head dims 64 and 128, ``simt`` for the rest), K3 SSD scan,
-   and logs each kernel's registers and spills.
+   bf16/f16 at head dims 64 and 128, ``simt`` for the rest), K3 SSD scan
+   in its two variants (``wgmma`` for bf16 B/C at P = N = 64 and chunk
+   128, ``simt`` for the rest), and logs each kernel's registers and
+   spills.
 3. Holds K1 against its plain PyTorch version and the float64 NumPy oracle
    over bf16/f32/i32/bool payloads, G in {1, 7, 64, the kernel's limit},
    ragged shapes and NaN/Inf in masked-off rows; two launches must give
@@ -16,7 +18,8 @@
 4. Holds K2 and K3 against their plain versions (and K3 against the
    literal recurrence) on the reference kernel tests' shapes and at the
    serving shapes; K2 in f32, bf16 and f16 at head dims 64 and 128 (and
-   qwen3-8b's GQA heads at D 128), checking which variant ran.
+   qwen3-8b's GQA heads at D 128), K3 with f32 and bf16 B/C, checking
+   which variant ran.
 5. Drives the population path at full size: the paper's 4,490-subject
    population (Table 3), one float32 91x109x91 MNI152 2 mm volume per
    subject, on ``GridSession(devices=["cuda:0"] * 4)`` with the paper's two
@@ -28,13 +31,15 @@
 6. Serves zamba2-1.2b at full width and depth (38 layers, random weights
    from a seed) through ``ServeEngine(device="cuda")``: 8 requests, 2048
    prompt tokens, 64 new tokens, greedy; counts K2/K3 launches per prefill
-   by wrapper, by K2 variant and by the profiler's kernel names, and holds
+   by wrapper, by variant and by the profiler's kernel names, and holds
    the prefill and every decode step's logits against the same model run
    with the kernels' plain versions on the same token stream (bf16
-   activations: K2's wgmma variant; fp32: its simt variant).
+   activations: the wgmma variants of K2 and K3; fp32: their simt
+   variants).
 7. Times K2's two variants, SDPA and the plain version in turns at the
-   serving call and at qwen3-8b's D=128 GQA shape, and K3 at its serving
-   call.
+   serving call and at qwen3-8b's D=128 GQA shape, and K3's two variants
+   and its plain version in turns at its serving call, with each one's
+   distance to a float64 run of the plain version.
 8. Prints one JSON line of kernel measurements, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -47,6 +52,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -298,7 +304,10 @@ def k2_sweep(gen):
 
 #: (B, L, H, P, N, chunk, B/C dtype, decay low end): tests/test_kernels.py's
 #: SSD cases (incl. L=100 padding), chunk invariance, the long strong-decay
-#: case (x = 1, a = 0.5), a bf16 ragged case and the serving shape
+#: case (x = 1, a = 0.5), all with f32 B/C (the simt variant); then bf16
+#: B/C at P = N = 64 and chunk 128 (the wgmma variant): one chunk, a
+#: ragged L = 300, the long-decay case, bf16 below chunk 128 (simt) and
+#: the serving shape
 K3_CASES = [
     (1, 64, 1, 16, 16, 16, F32, 0.7),
     (2, 128, 2, 32, 16, 64, F32, 0.7),
@@ -307,7 +316,10 @@ K3_CASES = [
     (1, 128, 2, 16, 16, 16, F32, 0.8),
     (1, 128, 2, 16, 16, 128, F32, 0.8),
     (1, 256, 1, 16, 16, 64, F32, None),
+    (1, 128, 4, 64, 64, 128, BF16, 0.7),
     (2, 300, 3, 64, 64, 128, BF16, 0.7),
+    (1, 512, 2, 64, 64, 128, BF16, None),
+    (2, 100, 3, 64, 64, 128, BF16, 0.7),
     (8, 2048, 64, 64, 64, 128, BF16, 0.7),
 ]
 K3_TOL = 1e-4          # the reference suite's; relative on the serving shape
@@ -328,22 +340,28 @@ def k3_inputs(gen, B, L, H, P, N, bdt, lo):
 
 
 def k3_sweep(gen):
-    worst = 0.0
+    worst = {}
     for B, L, H, P, N, chunk, bdt, lo in K3_CASES:
         x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, bdt, lo)
+        where = (B, L, H, P, N, chunk, bdt, lo)
+        ran = K3.variant(bdt, P, N, min(chunk, L))
+        before = K3.ssd_scan_cuda.by_variant[ran]
         y, s = K3.ssd_scan_cuda(x, a, Bm, Cm, chunk)
+        check(K3.ssd_scan_cuda.by_variant[ran] == before + 1,
+              f"K3 {where} did not run the {ran} variant")
         yp, sp = ssd_chunked_ref(x, a, Bm, Cm, min(chunk, L))
         torch.cuda.synchronize()
-        where = (B, L, H, P, N, chunk, bdt, lo)
         check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
               f"K3 non-finite {where}")
         scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
+        n, w = worst.get(ran, (0, 0.0))
         for got, want, what in ((y, yp, "y"), (s, sp, "state")):
             err = float((got - want).abs().max())
             check(err <= K3_TOL * scale,
-                  f"K3 {what} vs plain {where}: max err {err:.3g} "
+                  f"K3 ({ran}) {what} vs plain {where}: max err {err:.3g} "
                   f"(scale {scale:.3g})")
-            worst = max(worst, err)
+            w = max(w, err)
+        worst[ran] = (n + 1, w)
         if B * H * L <= 2048:          # the literal recurrence, small cases
             xs = x.permute(0, 2, 1, 3).reshape(B * H, L, P)
             as_ = a.permute(0, 2, 1).reshape(B * H, L)
@@ -354,7 +372,7 @@ def k3_sweep(gen):
             check(torch.allclose(y, yq, rtol=K3_TOL, atol=K3_TOL * scale)
                   and torch.allclose(s, sq.reshape(B, H, P, N),
                                      rtol=K3_TOL, atol=K3_TOL * scale),
-                  f"K3 vs the sequential recurrence {where}")
+                  f"K3 ({ran}) vs the sequential recurrence {where}")
         if lo is None:                 # geometric series bound
             check(float(s.abs().max()) < 2 * 0.1 / 0.5, "K3 long decay")
     return len(K3_CASES), worst
@@ -747,8 +765,10 @@ def device_breakdown(fn):
             cat = "K2"
         elif "flash_fwd_kernel" in name:
             cat = "K2 simt"
-        elif "ssd_scan_kernel" in name:
+        elif "ssd_wgmma_kernel" in name:
             cat = "K3"
+        elif "ssd_scan_kernel" in name:
+            cat = "K3 simt"
         elif "memcpy" in name or "memset" in name:
             cat = "copy"
         elif any(w in name for w in ("gemm", "cutlass", "xmma", "nvjet",
@@ -788,11 +808,12 @@ def serve_path():
     torch.cuda.reset_peak_memory_stats()
 
     K2.reset_counts()
-    K3.ssd_scan_cuda.launches = 0
+    K3.reset_counts()
     res = engine.generate(prompts, SERVE_NEW)
     out["launches"] = {"K2": K2.flash_attention_cuda.launches,
                        "K3": K3.ssd_scan_cuda.launches}
     out["k2_variants"] = dict(K2.flash_attention_cuda.by_variant)
+    out["k3_variants"] = dict(K3.ssd_scan_cuda.by_variant)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     kinds = cfg.layer_kinds()
     want = {"K2": kinds.count("attn_shared") + kinds.count("attn"),
@@ -801,6 +822,8 @@ def serve_path():
           f"launches per prefill {out['launches']} != {want}")
     check(out["k2_variants"] == {"wgmma": want["K2"], "simt": 0},
           f"bf16 prefill K2 variants {out['k2_variants']}")
+    check(out["k3_variants"] == {"wgmma": want["K3"], "simt": 0},
+          f"bf16 prefill K3 variants {out['k3_variants']}")
     check(res.tokens.shape == (SERVE_B, SERVE_NEW)
           and 0 <= res.tokens.min() and res.tokens.max() < cfg.vocab,
           "generated tokens")
@@ -813,7 +836,7 @@ def serve_path():
     wall, secs, calls, top = device_breakdown(
         lambda: engine.model.prefill(engine.params, pr))
     check(calls.get("K2") == want["K2"] and calls.get("K3") == want["K3"]
-          and "K2 simt" not in calls,
+          and "K2 simt" not in calls and "K3 simt" not in calls,
           f"profiler kernel names per prefill: {calls}")
     out["prefill_trace"] = (wall, secs, calls, top)
     _, caches = engine.model.prefill(engine.params, pr)
@@ -830,15 +853,23 @@ def serve_path():
     params32 = cast_for_compute(cfg32, engine.params, DEV)
     run32 = (build_model(cfg32), cfg32, params32, engine.capacity, pr, toks)
     K2.reset_counts()
+    K3.reset_counts()
     kern = teacher_forced(*run)
-    bf16_variants = dict(K2.flash_attention_cuda.by_variant)
+    bf16_variants = (dict(K2.flash_attention_cuda.by_variant),
+                     dict(K3.ssd_scan_cuda.by_variant))
     K2.reset_counts()
+    K3.reset_counts()
     kern32 = teacher_forced(*run32)
     out["f32_k2_variants"] = dict(K2.flash_attention_cuda.by_variant)
-    check(bf16_variants == {"wgmma": want["K2"], "simt": 0}
+    out["f32_k3_variants"] = dict(K3.ssd_scan_cuda.by_variant)
+    check(bf16_variants[0] == {"wgmma": want["K2"], "simt": 0}
           and out["f32_k2_variants"] == {"wgmma": 0, "simt": want["K2"]},
-          f"teacher-forced K2 variants: bf16 {bf16_variants}, fp32 "
+          f"teacher-forced K2 variants: bf16 {bf16_variants[0]}, fp32 "
           f"{out['f32_k2_variants']}")
+    check(bf16_variants[1] == {"wgmma": want["K3"], "simt": 0}
+          and out["f32_k3_variants"] == {"wgmma": 0, "simt": want["K3"]},
+          f"teacher-forced K3 variants: bf16 {bf16_variants[1]}, fp32 "
+          f"{out['f32_k3_variants']}")
     K2.reset_counts()
     k3_before = K3.ssd_scan_cuda.launches
     with plain_kernels():
@@ -934,24 +965,57 @@ def measure_k2(gen, B, H, Hkv, S, D):
 
 def measure_k3(gen):
     """K3 at the serving call: x [8, 2048, 64, 64] f32, a [8, 2048, 64],
-    B/C [8, 2048, 64] bf16 column slices, chunk 128."""
+    B/C [8, 2048, 64] bf16 column slices, chunk 128.  Its two variants and
+    the plain version are timed in turns (wgmma, simt, plain, then
+    backwards); each time is the mean of its two turns.  Errors: each
+    kernel against the plain version, and each kernel and the fp32 plain
+    version against the plain version run in float64 on the card."""
     B, L, H, P, N, Q = SERVE_B, SERVE_PROMPT, SERVE_SSM_HEADS, 64, 64, 128
     x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, BF16, 0.7)
-    before = K3.ssd_scan_cuda.launches
-    y, s = K3.ssd_scan_cuda(x, a, Bm, Cm, Q)
+    check(K3.variant(Bm.dtype, P, N, Q) == "wgmma", "K3 serving variant")
+    counts = (K3.ssd_scan_cuda.launches, dict(K3.ssd_scan_cuda.by_variant))
     yp, sp = ssd_chunked_ref(x, a, Bm, Cm, Q)
-    torch.cuda.synchronize()
-    err = max(float((y - yp).abs().max()), float((s - sp).abs().max()))
-    ms = event_ms(lambda: K3.ssd_scan_cuda(x, a, Bm, Cm, Q), 10)
-    plain_ms = event_ms(lambda: ssd_chunked_ref(x, a, Bm, Cm, Q), 3)
-    K3.ssd_scan_cuda.launches = before
+    y64, s64 = ssd_chunked_ref(x.double(), a.double(), Bm.double(),
+                               Cm.double(), Q)
+    def dist(y, s, yw, sw):
+        return max(float((y.double() - yw.double()).abs().max()),
+                   float((s.double() - sw.double()).abs().max()))
+    errs, f64 = {}, {"plain": dist(yp, sp, y64, s64)}
+    for name, fn in (("wgmma", K3.ssd_scan_wgmma),
+                     ("simt", K3.ssd_scan_simt)):
+        y, s = fn(x, a, Bm, Cm, Q)
+        torch.cuda.synchronize()
+        errs[name] = dist(y, s, yp, sp)
+        f64[name] = dist(y, s, y64, s64)
+        scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
+        check(errs[name] <= K3_TOL * scale,
+              f"K3 {name} at the serving call: max err {errs[name]:.3g}")
+    del y, s, yp, sp, y64, s64
+    runs = {
+        "wgmma": (lambda: K3.ssd_scan_wgmma(x, a, Bm, Cm, Q), 20),
+        "simt": (lambda: K3.ssd_scan_simt(x, a, Bm, Cm, Q), 10),
+        "plain": (lambda: ssd_chunked_ref(x, a, Bm, Cm, Q), 3),
+    }
+    turns = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            fn, reps = runs[name]
+            turns[name].append(event_ms(fn, reps))
+    # comparison launches
+    K3.ssd_scan_cuda.launches, K3.ssd_scan_cuda.by_variant = counts
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
     # operations the chunked scan needs: the lower triangles of C.B^T and
     # of M.x, the carried state's term, the state update
     per_chunk = Q * (Q + 1) * (N + P) + 4 * Q * P * N + 2 * P * N
     flops = B * H * -(-L // Q) * per_chunk
     nbytes = (2 * B * L * H * P * 4 + B * L * H * 4 + 2 * B * L * N * 2
               + B * H * P * N * 4)      # x, y; a; B, C once; final state
-    return bound_entry(err, ms, plain_ms, None, flops, nbytes)
+    entry = {name: dict(bound_entry(errs[name], ms[name], ms["plain"], None,
+                                    flops, nbytes), f64_err=f64[name])
+             for name in ("wgmma", "simt")}
+    entry["plain_f64_err"] = f64["plain"]
+    entry["turns"] = turns
+    return entry
 
 
 def bound_entry(err, ms, plain_ms, library_ms, flops, nbytes):
@@ -978,8 +1042,9 @@ def report_serve(sv, card):
         f"prefill {sv['prefill_s']:.3f} s, decode {sv['decode_tok_s']:.1f} "
         f"tok/s ({sv['decode_s']:.3f} s for {SERVE_NEW - 1} steps), peak "
         f"device memory {sv['peak_gb']:.1f} GB; launches per prefill "
-        f"{sv['launches']}, K2 by variant {sv['k2_variants']} (fp32 "
-        f"activations: {sv['f32_k2_variants']})")
+        f"{sv['launches']}, K2 by variant {sv['k2_variants']}, K3 by variant "
+        f"{sv['k3_variants']} (fp32 activations: K2 "
+        f"{sv['f32_k2_variants']}, K3 {sv['f32_k3_variants']})")
     for what in ("prefill", "decode"):
         w, secs, calls, top = sv[f"{what}_trace"]
         busy = sum(secs.values())
@@ -1005,7 +1070,8 @@ def report_serve(sv, card):
 def build_kernels():
     """Start every kernel's nvcc at once, then wait on each."""
     t0 = time.perf_counter()
-    libs = (K.LIBRARY, K2.WGMMA_LIBRARY, K2.LIBRARY, K3.LIBRARY)
+    libs = (K.LIBRARY, K2.WGMMA_LIBRARY, K2.LIBRARY, K3.WGMMA_LIBRARY,
+            K3.LIBRARY)
     for lib in libs:
         lib.start()
     for lib in libs:
@@ -1013,8 +1079,19 @@ def build_kernels():
         log(f"built {lib.source.name} in {lib.build_seconds:.1f} s "
             f"({lib.path.name})")
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill",
+                                       "Performance Loss")):
                 log("  ptxas:", line.strip())
+    # the tensor-core kernels must keep every accumulator in registers
+    # (a library found already built has no compiler report to read)
+    for lib in (K2.WGMMA_LIBRARY, K3.WGMMA_LIBRARY):
+        if not lib.build_log:
+            log(f"  {lib.source.name}: reused build, no ptxas report")
+            continue
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                            lib.build_log)
+        check(spills and not any(int(n) for n in spills),
+              f"{lib.source.name} spills registers: {spills}")
     log(f"all kernels built in {time.perf_counter() - t0:.1f} s, side by "
         f"side")
 
@@ -1052,7 +1129,9 @@ def main() -> int:
         f"{ran} {dt}: {n} cases, max |kernel-plain| {w:.3g}"
         for (ran, dt), (n, w) in sorted(worst2.items())) + "; "
         f"K3 sweep: {n3} cases vs plain (and the recurrence on the small "
-        f"ones), max |kernel-plain| {worst3:.3g}; "
+        f"ones), " + ", ".join(
+            f"{ran}: {n} cases, max |kernel-plain| {w:.3g}"
+            for ran, (n, w) in sorted(worst3.items())) + "; "
         f"{time.perf_counter() - t0:.1f} s")
 
     table, t_draw, t_upload = build_population(SCALE)
@@ -1114,12 +1193,19 @@ def main() -> int:
                 f"MB), SDPA {km['library_ms']:.4f} ms (turns {sdpa_turns}),"
                 f" plain {km['plain_ms']:.3f} ms, max |kernel-plain| "
                 f"{km['max_abs_err']:.3g}")
-    log(f"K3 at x [8,2048,64,64] f32, B/C bf16, chunk 128 on {card}: "
-        f"{k3m['ms']:.3f} ms, bound {k3m['bound_ms']:.4f} ms "
-        f"({k3m['bound_by']}; {k3m['flops'] / 1e9:.1f} GFLOP, "
-        f"{k3m['bytes'] / 1e6:.1f} MB), plain {k3m['plain_ms']:.3f} ms, "
-        f"library none (no single PyTorch call computes it), max "
-        f"|kernel-plain| {k3m['max_abs_err']:.3g}")
+    for var in ("wgmma", "simt"):
+        km = k3m[var]
+        turns = ", ".join(f"{t:.4f}" for t in k3m["turns"][var])
+        plain_turns = ", ".join(f"{t:.3f}" for t in k3m["turns"]["plain"])
+        log(f"K3 {var} at x [8,2048,64,64] f32, B/C bf16, chunk 128 on "
+            f"{card}: {km['ms']:.4f} ms (turns {turns}), bound "
+            f"{km['bound_ms']:.4f} ms ({km['bound_by']}; "
+            f"{km['flops'] / 1e9:.1f} GFLOP, {km['bytes'] / 1e6:.1f} MB), "
+            f"plain {km['plain_ms']:.3f} ms (turns {plain_turns}), library "
+            f"none (no single PyTorch call computes it), max |kernel-plain| "
+            f"{km['max_abs_err']:.3g}, max |kernel-float64| "
+            f"{km['f64_err']:.3g} (fp32 plain version: "
+            f"{k3m['plain_f64_err']:.3g})")
 
     print(json.dumps({"kernels": [
         kernel_line("fused_fold",
@@ -1137,9 +1223,14 @@ def main() -> int:
                     "src/repro/kernels/flash_attention/kernel.py:33",
                     sv["f32_k2_variants"]["simt"], k2m["zamba2"]["simt"]),
         kernel_line("ssd_scan",
+                    "src/repro_torch/kernels/ssm_scan/csrc/"
+                    "ssd_scan_wgmma.cu",
+                    "src/repro/kernels/ssm_scan/kernel.py:29",
+                    sv["k3_variants"]["wgmma"], k3m["wgmma"]),
+        kernel_line("ssd_scan_simt",
                     "src/repro_torch/kernels/ssm_scan/csrc/ssd_scan.cu",
                     "src/repro/kernels/ssm_scan/kernel.py:29",
-                    sv["launches"]["K3"], k3m),
+                    sv["f32_k3_variants"]["simt"], k3m["simt"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

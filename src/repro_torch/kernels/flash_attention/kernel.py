@@ -22,11 +22,11 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._build import CudaLibrary, check_launch
+from repro_torch.kernels._build import CudaLibrary, check_launch, tma_strides
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: head dims the simt kernel is instantiated for
@@ -62,29 +62,6 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
     if dtype in WGMMA_DTYPES and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
-
-
-def tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
-    """The (batch, head, sequence) element strides under which a
-    ``[B, H, S, D]`` operand can be described to TMA as it lies, or None
-    when it must be copied first.
-
-    TMA needs a 16-byte aligned base, unit stride along D, and the other
-    strides positive multiples of 16 bytes.  A dimension of size 1 is never
-    stepped along, so its stride is replaced by D's row length, which
-    always qualifies (D is 64 or 128)."""
-    if t.stride(-1) != 1 or t.data_ptr() % 16:
-        return None
-    es = t.element_size()
-    out = []
-    for dim in range(3):
-        n, s = t.shape[dim], t.stride(dim)
-        if n == 1:
-            s = t.shape[-1]
-        elif s <= 0 or (s * es) % 16:
-            return None
-        out.append(s)
-    return tuple(out)
 
 
 def wgmma_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

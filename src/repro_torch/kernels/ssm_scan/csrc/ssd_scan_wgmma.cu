@@ -1,0 +1,534 @@
+// Chunked SSD (mamba2) scan for Hopper (sm_90a) on bf16 tensor cores, from
+// a zero state: TMA-fed wgmma tiles, one CTA per stream.
+//
+// Replaces repro/kernels/ssm_scan/kernel.py::_ssd_kernel (the Pallas TPU
+// kernel) for bf16 B and C at P = N = 64 and chunks of 128 steps;
+// ssd_scan.cu beside it keeps f32/f16 B and C and the narrower dims.  Same
+// function: for every (batch b, head h) stream, with x [B, L, H, P] f32 (dt
+// folded in), the decay a [B, L, H] f32 and B, C [B, L, N] bf16 shared by
+// all heads (read at batch b), per chunk of Q = 128 steps with cum the
+// inclusive cumsum of log(max(a, 1e-20)):
+//
+//   M[i, j]  = (C_i . B_j) exp(cum_i - cum_j) for i >= j, else exactly 0
+//   y_i      = sum_j M[i, j] x_j + exp(cum_i) (C_i . S^T)
+//   S       <- exp(cum_{Q-1}) S + sum_j exp(cum_{Q-1} - cum_j) x_j^T B_j
+//
+// Steps past L are read as a = 1 and x = B = C = 0 (TMA fills the rows
+// with zeros) and are not written.  Outputs: y [B, L, H, P] f32 and the
+// final state [B, H, P, N] f32.
+//
+// Precision contract.  B and C are bf16, so they enter the tensor cores
+// exactly.  Every fp32 operand (x, the decay matrix M, the carried state S,
+// x scaled by the decay to the chunk's end) enters only as an
+// error-compensated split, hi = bf16(v), lo = bf16(v - hi):
+//   C.B^T           one bf16 product (both exact)
+//   C.S^T           C.S_hi^T + C.S_lo^T
+//   M.x             M_hi.x_hi + M_hi.x_lo + M_lo.x_hi
+//   (x*dout)^T.B    xd_hi^T.B + xd_lo^T.B
+// and every sum accumulates in fp32 (the wgmma accumulators).  What is left
+// out (lo.lo, and the part of v below lo) is about 2^-17 relative per
+// operand; no fp32 operand is rounded once to bf16, and nothing runs in
+// TF32.
+//
+// Bound.  At the serving call (B 8, L 2048, H 64, P = N = 64, Q = 128) the
+// scan must move about 553 MB (x and y in f32 dominate): 0.165 ms at 3.35
+// TB/s.  Its 34.6 GFLOP would take 0.52 ms on the CUDA cores in fp32; split
+// into bf16 products it is about 80 GFLOP of tensor-core work, under 0.1 ms.
+//
+// Design.  One CTA per stream walks its chunks in order and keeps the fp32
+// state on chip, so device memory sees each input once and never the state
+// (a chunk-parallel scheme would write and re-read per-chunk states).  Three
+// warpgroups:
+//   warpgroup 2 (producer) gives up registers (setmaxnreg) and one warp of
+//     it works: for chunk c it waits for ring slot c % 2 to be free,
+//     TMA-loads x (f32, unswizzled), B and C (bf16, 128-byte swizzle) into
+//     it, then computes the chunk's cumsum (a warp scan of log a), exp(cum)
+//     and exp(cum_last - cum) into the slot: the next chunk's loads and scan
+//     run while the consumers work on this one.
+//   warpgroup 0 (rows 0-63) and warpgroup 1 (rows 64-127), consumers:
+//     1. issue C.B^T (wgmma, both K-major from shared memory; warpgroup 0
+//        needs only keys 0-63, n64, warpgroup 1 all 128, n128), and while
+//        the tensor cores run it, split x and x*dout into hi/lo bf16 tiles
+//        (128-byte swizzle, shared by both); warpgroup 0, which holds the
+//        state as a m64n64 wgmma accumulator (32 registers a thread),
+//        writes S_hi/S_lo tiles;
+//     2. issue y = C.S^T (C K-major, S K-major), and while it runs apply
+//        the decay to the C.B^T fragments in registers, exponentiating
+//        only i >= j, and split M into hi/lo register-A fragments (the
+//        accumulator layout is the A layout); then y *= exp(cum_i);
+//     3. y += M.x: register-A wgmma against the x tiles read MN-major;
+//        warpgroup 0 skips the k-steps of keys 64-127, which it never sees;
+//     4. warpgroup 0 only: S = exp(cum_last) S + xd^T.B (both operands
+//        MN-major from shared memory), balancing warpgroup 1's extra
+//        k-steps of step 3, in a group of its own;
+//     5. y goes straight from registers to device memory (under step 4);
+//        the ring slot is released.
+//   Two named barriers a chunk order the consumers around the shared split
+//   tiles.  The consumers raise their registers to 224 (setmaxnreg): at
+//   the 168 a thread that 384 threads start with, warpgroup 0 (the state,
+//   C.B^T, y and the M fragments live at once) spills.
+//
+// Shared memory (bytes), one CTA per SM:
+//   x f32, 2 stages                  65,536
+//   B and C bf16, 2 stages           65,536
+//   x hi/lo, xd hi/lo bf16           65,536   (single: rewritten each chunk)
+//   S hi/lo bf16                     16,384
+//   cum, exp(cum), dout, 2 stages     3,072
+//   mbarriers                            48   -> 216,112 + 1,024 to align
+// Only the inputs are double-buffered.  A second set of split tiles would
+// let the next chunk's split overlap this chunk's products, but its 64 KB
+// do not fit.  Every mbarrier wait traps after about 2^34 cycles (a lost
+// arrival), and the launcher refuses a build with too few registers for
+// setmaxnreg.
+
+#include "../../common/hopper.cuh"
+
+namespace {
+
+using namespace hopper;
+
+constexpr int Q = 128;          // chunk
+constexpr int P = 64;           // head dim
+constexpr int N = 64;           // state dim
+constexpr int STAGES = 2;       // depth of the input ring
+constexpr int NC = 256;         // consumer threads: two warpgroups
+constexpr int NT = NC + 128;    // and the producer warpgroup
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+constexpr float LOG2E = 1.4426950408889634f;
+
+constexpr int X_BYTES = Q * P * 4;      // f32 [Q][P], unswizzled
+constexpr int BC_BYTES = Q * N * 2;     // bf16 [Q][N], 128-byte swizzle
+constexpr int T_BYTES = Q * 64 * 2;     // one bf16 split tile [Q][64]
+constexpr int S_BYTES = P * N * 2;      // one bf16 state tile [P][N]
+constexpr int CUM_BYTES = 3 * Q * 4;    // cum, exp(cum), dout of one stage
+constexpr int X_OFF = 0;
+constexpr int B_OFF = X_OFF + STAGES * X_BYTES;
+constexpr int C_OFF = B_OFF + STAGES * BC_BYTES;
+constexpr int XH_OFF = C_OFF + STAGES * BC_BYTES;
+constexpr int XL_OFF = XH_OFF + T_BYTES;
+constexpr int DH_OFF = XL_OFF + T_BYTES;
+constexpr int DL_OFF = DH_OFF + T_BYTES;
+constexpr int SH_OFF = DL_OFF + T_BYTES;
+constexpr int SL_OFF = SH_OFF + S_BYTES;
+constexpr int CUM_OFF = SL_OFF + S_BYTES;
+constexpr int BAR_OFF = CUM_OFF + STAGES * CUM_BYTES;
+// barriers: full[STAGES] (TMA), cum_full[STAGES] (producer warp),
+// empty[STAGES] (lane 0 of each consumer warp)
+constexpr int SMEM_BYTES = BAR_OFF + 3 * STAGES * 8;
+constexpr int ALLOC = SMEM_BYTES + 1024;   // room to align to 1024
+static_assert(ALLOC <= 232448, "over the 227 KB a CTA may use");
+static_assert(SH_OFF % 1024 == 0 && XH_OFF % 1024 == 0, "tile alignment");
+
+// hi = bf16(v), lo = bf16(v - hi) for two values, packed as wgmma takes
+// them (the first value in the low half).
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// K-major 128-byte-swizzled operand: rows of 64 bf16, 8-row groups 1024
+// bytes apart.  MN-major: the same tile read along its rows.
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr) {
+  return sw128_desc(addr, Q * 128, 1024);
+}
+
+struct Ctx {
+  uint32_t base;            // shared address of the aligned buffer
+  unsigned char* gbase;     // its generic address
+  float* y;                 // y at (b, step 0, h)
+  long long yst;
+  float* state;             // the final state of this stream [P][N]
+  int L, n_chunks;
+};
+
+__device__ __forceinline__ uint32_t bar_full(uint32_t base, int s) {
+  return base + BAR_OFF + 8u * s;
+}
+__device__ __forceinline__ uint32_t bar_cum(uint32_t base, int s) {
+  return base + BAR_OFF + 8u * (STAGES + s);
+}
+__device__ __forceinline__ uint32_t bar_empty(uint32_t base, int s) {
+  return base + BAR_OFF + 8u * (2 * STAGES + s);
+}
+
+// Consumer warpgroup W: chunk rows [64 W, 64 W + 64).
+template <int W>
+__device__ __forceinline__ void consume(const Ctx& cx) {
+  constexpr int KS = (W + 1) * 4;       // k-steps of 16 keys in M.x
+  constexpr int NCB = (W + 1) * 64;     // keys of C.B^T this group needs
+  const int t = threadIdx.x;            // 0..255
+  const int warp = (t % 128) / 32, lane = t % 32;
+  const int rl = warp * 16 + lane / 4;  // this thread's rows: rl, rl + 8
+  const int i0 = W * 64 + rl;
+  const int cq = (lane % 4) * 2;        // first column in each 8-group
+  const uint32_t base = cx.base;
+
+  float S[32];                          // the state (warpgroup 0)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) S[i] = 0.f;
+
+  for (int ck = 0; ck < cx.n_chunks; ++ck) {
+    const int s = ck % STAGES;
+    const uint32_t ph = (ck / STAGES) & 1;
+    const int t0 = ck * Q;
+    const uint32_t bs = base + B_OFF + s * BC_BYTES;
+    const uint32_t cs = base + C_OFF + s * BC_BYTES;
+    const float* xf =
+        reinterpret_cast<const float*>(cx.gbase + X_OFF + s * X_BYTES);
+    const float* cum =
+        reinterpret_cast<const float*>(cx.gbase + CUM_OFF + s * CUM_BYTES);
+    const float* ecum = cum + Q;
+    const float* dout = cum + 2 * Q;
+    mbar_wait(bar_cum(base, s), ph);
+    mbar_wait(bar_full(base, s), ph);
+
+    // 1a. cb = C.B^T, issued first: the tensor cores run it under the split
+    float cb[NCB / 2];
+#pragma unroll
+    for (int i = 0; i < NCB / 2; ++i) cb[i] = 0.f;
+    const uint32_t ca = cs + W * 64 * 128;    // this group's 64 rows of C
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (W == 0)
+        wgmma_ss_n64_bf16<0, 0>(cb, kmajor(ca + kk * 32),
+                                kmajor(bs + kk * 32), 1);
+      else
+        wgmma_ss_n128_bf16(cb, kmajor(ca + kk * 32), kmajor(bs + kk * 32));
+    }
+    wg_commit();
+    fence_regs(cb);
+
+    // 1b. split x and xd = x * dout: four 16-byte chunks of 8 values a thread
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = t + NC * k;
+      const int row = c >> 3, q = c & 7;
+      const float4* src = reinterpret_cast<const float4*>(xf + row * P + q * 8);
+      const float4 v0 = src[0], v1 = src[1];
+      const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      const float dj = dout[row];
+      uint4 xh, xl, dh, dl;
+      split2(v[0], v[1], xh.x, xl.x);
+      split2(v[2], v[3], xh.y, xl.y);
+      split2(v[4], v[5], xh.z, xl.z);
+      split2(v[6], v[7], xh.w, xl.w);
+      split2(v[0] * dj, v[1] * dj, dh.x, dl.x);
+      split2(v[2] * dj, v[3] * dj, dh.y, dl.y);
+      split2(v[4] * dj, v[5] * dj, dh.z, dl.z);
+      split2(v[6] * dj, v[7] * dj, dh.w, dl.w);
+      const uint32_t off = row * 128 + (((q ^ row) & 7) << 4);
+      *reinterpret_cast<uint4*>(cx.gbase + XH_OFF + off) = xh;
+      *reinterpret_cast<uint4*>(cx.gbase + XL_OFF + off) = xl;
+      *reinterpret_cast<uint4*>(cx.gbase + DH_OFF + off) = dh;
+      *reinterpret_cast<uint4*>(cx.gbase + DL_OFF + off) = dl;
+    }
+    if (W == 0 && ck > 0) {   // the state entering this chunk, as S_hi/S_lo
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int n = g * 8 + cq;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          uint32_t hi, lo;
+          split2(S[4 * g + 2 * r], S[4 * g + 2 * r + 1], hi, lo);
+          const uint32_t off = sw128_offset(rl + 8 * r, n);
+          *reinterpret_cast<uint32_t*>(cx.gbase + SH_OFF + off) = hi;
+          *reinterpret_cast<uint32_t*>(cx.gbase + SL_OFF + off) = lo;
+        }
+      }
+    }
+    fence_proxy_async();
+    named_bar_sync(1, NC);
+
+    // 2a. y = C.S^T (from the second chunk on), under the decay below;
+    // y is first live here, which keeps the split above free of spills
+    float y[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[i] = 0.f;
+    if (ck > 0) {
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64_bf16<0, 0>(y, kmajor(ca + kk * 32),
+                                kmajor(base + SH_OFF + kk * 32), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64_bf16<0, 0>(y, kmajor(ca + kk * 32),
+                                kmajor(base + SL_OFF + kk * 32), 1);
+      wg_commit();
+      fence_regs(y);
+      wg_wait<1>();
+    } else {
+      wg_wait<0>();
+    }
+    fence_regs(cb);
+
+    // 2b. M = cb * exp(cum_i - cum_j) for i >= j, split into A fragments.
+    // Register i holds row i0 + 8 * ((i / 2) % 2), key (i / 4) * 8 + cq + i % 2.
+    const float c0 = cum[i0], c1 = cum[i0 + 8];
+    uint32_t mh[NCB / 4], ml[NCB / 4];
+#pragma unroll
+    for (int i = 0; i < NCB / 2; i += 2) {
+      const bool top = (i / 2) % 2 == 0;
+      const int row = top ? i0 : i0 + 8;
+      const float cr = top ? c0 : c1;
+      const int col = (i / 4) * 8 + cq;
+      const float m0 =
+          col <= row ? cb[i] * ex2((cr - cum[col]) * LOG2E) : 0.f;
+      const float m1 =
+          col + 1 <= row ? cb[i + 1] * ex2((cr - cum[col + 1]) * LOG2E) : 0.f;
+      split2(m0, m1, mh[i / 2], ml[i / 2]);
+    }
+    if constexpr (W == 0) {
+      const float decay = ecum[Q - 1];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) S[i] *= decay;
+    }
+    wg_wait<0>();
+    fence_regs(y);
+    const float e0 = ecum[i0], e1 = ecum[i0 + 8];   // y *= exp(cum_i)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[i] *= ((i / 2) % 2 == 0) ? e0 : e1;
+
+    // 3. y += M.x;  4. S += xd^T.B (warpgroup 0), a group of its own so
+    // that y is stored while it runs
+    fence_regs(y);
+    if constexpr (W == 0) fence_regs(S);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint64_t xh = mnmajor(base + XH_OFF + ks * 16 * 128);
+      const uint64_t xl = mnmajor(base + XL_OFF + ks * 16 * 128);
+      wgmma_rs_n64_bf16(y, mh + 4 * ks, xh);
+      wgmma_rs_n64_bf16(y, mh + 4 * ks, xl);
+      wgmma_rs_n64_bf16(y, ml + 4 * ks, xh);
+    }
+    wg_commit();
+    fence_regs(y);
+    if constexpr (W == 0) {
+#pragma unroll
+      for (int ks = 0; ks < Q / 16; ++ks) {
+        const uint64_t bt = mnmajor(bs + ks * 16 * 128);
+        wgmma_ss_n64_bf16<1, 1>(S, mnmajor(base + DH_OFF + ks * 16 * 128),
+                                bt, 1);
+        wgmma_ss_n64_bf16<1, 1>(S, mnmajor(base + DL_OFF + ks * 16 * 128),
+                                bt, 1);
+      }
+      wg_commit();
+      fence_regs(S);
+      wg_wait<1>();
+    } else {
+      wg_wait<0>();
+    }
+    fence_regs(y);
+
+    // 5. store y (rows past L never), release the slot, wait for the other
+    // group before the split tiles are rewritten
+    float* yb = cx.y + static_cast<long long>(t0) * cx.yst;
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      const int col = g * 8 + cq;
+      if (t0 + i0 < cx.L)
+        *reinterpret_cast<float2*>(yb + i0 * cx.yst + col) =
+            make_float2(y[4 * g], y[4 * g + 1]);
+      if (t0 + i0 + 8 < cx.L)
+        *reinterpret_cast<float2*>(yb + (i0 + 8) * cx.yst + col) =
+            make_float2(y[4 * g + 2], y[4 * g + 3]);
+    }
+    if constexpr (W == 0) {
+      wg_wait<0>();
+      fence_regs(S);
+    }
+    if (lane == 0) mbar_arrive(bar_empty(base, s));
+    named_bar_sync(1, NC);
+  }
+
+  if constexpr (W == 0) {
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      const int n = g * 8 + cq;
+      *reinterpret_cast<float2*>(cx.state + rl * N + n) =
+          make_float2(S[4 * g], S[4 * g + 1]);
+      *reinterpret_cast<float2*>(cx.state + (rl + 8) * N + n) =
+          make_float2(S[4 * g + 2], S[4 * g + 3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT, 1)
+ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_b,
+                 const __grid_constant__ CUtensorMap tm_c,
+                 const float* __restrict__ a, float* __restrict__ y,
+                 float* __restrict__ state_out, int L, int H, long long asb,
+                 long long ast, long long ash, long long ysb, long long yst,
+                 long long ysh) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full(base, s), 1);
+      mbar_init(bar_cum(base, s), 32);     // every lane of the producer
+      mbar_init(bar_empty(base, s), NC / 32);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Values live across setmaxnreg are spilled: each side computes its own
+  // after it.
+  if (threadIdx.x >= NC) {
+    // ---- producer: one warp of the last warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x >= NC + 32) return;
+    const int lane = threadIdx.x % 32;
+    const int b = blockIdx.x / H, h = blockIdx.x % H;
+    const int n_chunks = (L + Q - 1) / Q;
+    const float* ap = a + b * asb + h * ash;
+    for (int ck = 0; ck < n_chunks; ++ck) {
+      const int s = ck % STAGES;
+      const int t0 = ck * Q;
+      mbar_wait(bar_empty(base, s), ((ck / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        const uint32_t full = bar_full(base, s);
+        mbar_expect_tx(full, X_BYTES + 2 * BC_BYTES);
+        tma_load(base + X_OFF + s * X_BYTES, &tm_x, full, 0, t0, h, b);
+        tma_load_3d(base + B_OFF + s * BC_BYTES, &tm_b, full, 0, t0, b);
+        tma_load_3d(base + C_OFF + s * BC_BYTES, &tm_c, full, 0, t0, b);
+      }
+      // inclusive cumsum of log(max(a, 1e-20)): 4 steps a lane, then a
+      // scan across lanes; steps past L decay by 1
+      float v[4], run = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int tt = t0 + lane * 4 + k;
+        const float av = tt < L ? ap[static_cast<long long>(tt) * ast] : 1.f;
+        run += logf(fmaxf(av, 1e-20f));
+        v[k] = run;
+      }
+      float off = run;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const float o = __shfl_up_sync(0xffffffffu, off, d);
+        if (lane >= d) off += o;
+      }
+      const float last = __shfl_sync(0xffffffffu, off, 31);
+      off -= run;      // exclusive prefix of this lane's total
+      float* cs = reinterpret_cast<float*>(gbase + CUM_OFF + s * CUM_BYTES);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = lane * 4 + k;
+        const float c = off + v[k];
+        cs[j] = c;
+        cs[Q + j] = expf(c);
+        cs[2 * Q + j] = expf(last - c);
+      }
+      mbar_arrive(bar_cum(base, s));
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int n_chunks = (L + Q - 1) / Q;
+  Ctx cx{base, gbase, y + b * ysb + h * ysh, yst,
+         state_out + static_cast<long long>(blockIdx.x) * P * N, L,
+         n_chunks};
+  if (threadIdx.x < 128) consume<0>(cx);
+  else consume<1>(cx);
+}
+
+// ---- host side -------------------------------------------------------------
+
+// x [B, L, H, 64] f32 as a 4-D map (P, L, H, B), boxes of 64 x 128 steps,
+// unswizzled; st: its (batch, step, head) element strides.
+CUresult encode_x(CUtensorMap* map, const void* x, int L, int H, int B,
+                  const long long* st) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(P),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[1]) * 4,
+                                 static_cast<cuuint64_t>(st[2]) * 4,
+                                 static_cast<cuuint64_t>(st[0]) * 4};
+  const cuuint32_t box[4] = {P, Q, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                                const_cast<void*>(x), dims, strides, box,
+                                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_NONE,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// B or C [B, L, 64] bf16 as a 3-D map (N, L, B), boxes of 64 x 128 steps,
+// 128-byte swizzle; sb, st: its batch and step element strides.
+CUresult encode_bc(CUtensorMap* map, const void* p, int L, int B,
+                   long long sb, long long st) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[3] = {N, Q, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                                const_cast<void*>(p), dims, strides, box,
+                                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_128B,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+constexpr int ENCODE_ERROR = 1000;   // + CUresult of cuTensorMapEncodeTiled
+
+}  // namespace
+
+// The same interface as ssd_scan_launch (ssd_scan.cu), for what this kernel
+// takes: bc_dtype 1 (bf16), P = N = 64, Q = 128, L >= 1.  strides holds 13
+// element strides: x (batch, step, head), a (batch, step, head), B (batch,
+// step), C (batch, step), y (batch, step, head); the innermost strides of
+// x, B, C and y are 1.  x, B and C need 16-byte aligned bases and strides
+// of a multiple of 16 bytes (TMA); y 8-byte alignment.  The final state is
+// written contiguous [B*H, P, N].  Returns 0, a CUDA error code, or 1000 +
+// the CUresult of a failed tensor-map encoding.
+extern "C" int ssd_scan_wgmma_launch(const void* x, const void* a,
+                                     const void* Bm, const void* Cm,
+                                     int bc_dtype, void* y, void* state_out,
+                                     int Bsz, int L, int H, int P_, int N_,
+                                     int Q_, const long long* st,
+                                     void* stream) {
+  if (bc_dtype != 1 || P_ != P || N_ != N || Q_ != Q || L < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // setmaxnreg moves registers between the warpgroups of the CTA's own
+  // allocation: the kernel must start with enough of them, or the
+  // consumers' setmaxnreg.inc would wait forever.
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, ssd_wgmma_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.numRegs * NT < 128 * PRODUCER_REGS + NC * CONSUMER_REGS)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  err = cudaFuncSetAttribute(
+      ssd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ALLOC);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap mx, mb, mc;
+  CUresult r = encode_x(&mx, x, L, H, Bsz, st);
+  if (r == CUDA_SUCCESS) r = encode_bc(&mb, Bm, L, Bsz, st[6], st[7]);
+  if (r == CUDA_SUCCESS) r = encode_bc(&mc, Cm, L, Bsz, st[8], st[9]);
+  if (r != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(r);
+  ssd_wgmma_kernel<<<Bsz * H, NT, ALLOC, static_cast<cudaStream_t>(stream)>>>(
+      mx, mb, mc, static_cast<const float*>(a), static_cast<float*>(y),
+      static_cast<float*>(state_out), L, H, st[3], st[4], st[5], st[10],
+      st[11], st[12]);
+  return static_cast<int>(cudaGetLastError());
+}

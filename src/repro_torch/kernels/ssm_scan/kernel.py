@@ -1,13 +1,23 @@
-"""The SSD-scan CUDA kernel: build, bind, launch.
+"""The SSD-scan CUDA kernels: build, bind, dispatch, launch.
 
 Port of ``src/repro/kernels/ssm_scan/kernel.py``.  The Pallas kernel
-``_ssd_kernel`` becomes ``csrc/ssd_scan.cu`` (CUDA C++ for ``sm_90a``),
-built with ``nvcc`` at first use into ``build/kernels/`` and bound through
-``ctypes``.  It reads the model layout directly: x ``[B, L, H, P]``,
-a ``[B, L, H]`` and B/C ``[B, L, N]`` indexed at each stream's batch (the
-reference's ops layer copied B and C out per head), and it pads the tail
-chunk itself.  Its plain version is ``ref.ssd_chunked_ref`` with a zero
-initial state.
+``_ssd_kernel`` becomes two hand-written CUDA C++ kernels for ``sm_90a``,
+each built with ``nvcc`` at first use into ``build/kernels/`` and bound
+through ``ctypes``:
+
+- ``csrc/ssd_scan_wgmma.cu`` ("wgmma") takes bf16 B/C at P = N = 64 and
+  chunks of 128 steps: TMA-fed ``wgmma`` tiles on the bf16 tensor cores,
+  with every fp32 operand split into bf16 hi/lo parts;
+- ``csrc/ssd_scan.cu`` ("simt") takes everything else the op accepts
+  (f32 or f16 B/C, P and N up to 64, chunks up to 128): fp32 products on
+  the CUDA cores.
+
+:func:`variant` is the rule between them.  It is a dispatch between two
+kernels, not a fallback: a failed build or launch raises.  Both read the
+model layout directly: x ``[B, L, H, P]``, a ``[B, L, H]`` and B/C
+``[B, L, N]`` indexed at each stream's batch, with the caller's strides,
+and both pad the tail chunk themselves.  The plain version is
+``ref.ssd_chunked_ref`` with a zero initial state.
 """
 
 from __future__ import annotations
@@ -18,35 +28,44 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._build import CudaLibrary, check_launch
+from repro_torch.kernels._build import CudaLibrary, check_launch, tma_strides
 
 _BC_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: the kernel's limits: chunk, head dim P, state dim N
+#: the simt kernel's limits: chunk, head dim P, state dim N
 MAX_CHUNK, MAX_P, MAX_N = 128, 64, 64
+#: what the wgmma kernel takes: B/C dtype, P, N and chunk
+WGMMA_BC_DTYPE, WGMMA_P, WGMMA_N, WGMMA_CHUNK = torch.bfloat16, 64, 64, 128
+VARIANTS = ("wgmma", "simt")
+_CSRC = Path(__file__).resolve().parent / "csrc"
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    fn = lib.ssd_scan_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, i, p, p]
-    fn.restype = ctypes.c_int
+def _binder(name: str):
+    def bind(lib: ctypes.CDLL) -> None:
+        fn = getattr(lib, name)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, i, p, p]
+        fn.restype = ctypes.c_int
+    return bind
 
 
-LIBRARY = CudaLibrary(
-    Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu", _bind)
+LIBRARY = CudaLibrary(_CSRC / "ssd_scan.cu", _binder("ssd_scan_launch"))
+#: links libcuda for ``cuTensorMapEncodeTiled``
+WGMMA_LIBRARY = CudaLibrary(_CSRC / "ssd_scan_wgmma.cu",
+                            _binder("ssd_scan_wgmma_launch"),
+                            extra_flags=("-lcuda",))
 
 
-def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
-                  Cm: torch.Tensor, chunk: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on the current stream (no synchronisation).
+def variant(bc_dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
+    """Which kernel runs a call: ``"wgmma"`` for bf16 B/C at P = N = 64
+    with chunks of 128 steps (``chunk`` is the chunk the call runs,
+    ``min(chunk, L)``), ``"simt"`` otherwise."""
+    if (bc_dtype == WGMMA_BC_DTYPE and P == WGMMA_P and N == WGMMA_N
+            and chunk == WGMMA_CHUNK):
+        return "wgmma"
+    return "simt"
 
-    ``x [B, L, H, P]`` and ``a [B, L, H]`` float32, ``Bm, Cm [B, L, N]``
-    (f32, bf16 or f16), on one CUDA device, unit stride along P and N.
-    Returns ``(y [B, L, H, P], final_state [B, H, P, N])``, fp32 and
-    contiguous, for a zero initial state and chunks of ``min(chunk, L)``
-    steps.  Raises on anything else, and when the launch reports an error.
-    Each launch bumps ``ssd_scan_cuda.launches``."""
+
+def _check(x, a, Bm, Cm, chunk) -> Tuple[int, int, int, int, int, int, int]:
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
     if x.dim() != 4 or a.dim() != 3 or Bm.dim() != 3 or Cm.dim() != 3:
@@ -66,23 +85,94 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     if not (1 <= Q <= MAX_CHUNK and P <= MAX_P and N <= MAX_N):
         raise ValueError(f"chunk {Q}, P {P}, N {N} outside the kernel's "
                          f"limits ({MAX_CHUNK}, {MAX_P}, {MAX_N})")
-    x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous()
-                 for t in (x, Bm, Cm))
+    return code, Bsz, L, H, P, N, Q
+
+
+def _launch(lib: CudaLibrary, name: str, x, a, Bm, Cm, strides, code, Bsz,
+            L, H, P, N, Q) -> Tuple[torch.Tensor, torch.Tensor]:
     y = torch.empty((Bsz, L, H, P), dtype=torch.float32, device=x.device)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    strides = (ctypes.c_longlong * 13)(
-        *x.stride()[:3], *a.stride(), *Bm.stride()[:2], *Cm.stride()[:2],
-        *y.stride()[:3])
-    lib = LIBRARY.get()
+    st = (ctypes.c_longlong * 13)(*strides, *y.stride()[:3])
+    fn = getattr(lib.get(), name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ssd_scan_launch(
-            x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), code,
-            y.data_ptr(), state.data_ptr(), Bsz, L, H, P, N, Q,
-            ctypes.addressof(strides), stream)
-    check_launch(err, "ssd_scan")
-    ssd_scan_cuda.launches += 1
+        err = fn(x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                 code, y.data_ptr(), state.data_ptr(), Bsz, L, H, P, N, Q,
+                 ctypes.addressof(st), stream)
+    if err >= 1000:
+        raise RuntimeError(f"ssd_scan {name}: cuTensorMapEncodeTiled failed "
+                           f"with CUresult {err - 1000}")
+    check_launch(err, f"ssd_scan ({name})")
     return y, state
 
 
-ssd_scan_cuda.launches = 0
+def ssd_scan_simt(x, a, Bm, Cm, chunk: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/ssd_scan.cu`` (f32, bf16 or f16 B/C; P, N <= 64;
+    chunks up to 128).  Bumps ``ssd_scan_cuda.launches`` and its
+    ``"simt"`` count."""
+    code, Bsz, L, H, P, N, Q = _check(x, a, Bm, Cm, chunk)
+    x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous()
+                 for t in (x, Bm, Cm))
+    strides = (*x.stride()[:3], *a.stride(), *Bm.stride()[:2],
+               *Cm.stride()[:2])
+    out = _launch(LIBRARY, "ssd_scan_launch", x, a, Bm, Cm, strides, code,
+                  Bsz, L, H, P, N, Q)
+    _count("simt")
+    return out
+
+
+def ssd_scan_wgmma(x, a, Bm, Cm, chunk: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/ssd_scan_wgmma.cu`` (bf16 B/C, P = N = 64, chunks of
+    128).  An x, B or C that TMA cannot read as it lies
+    (:func:`tma_strides`) is copied first.  Bumps ``ssd_scan_cuda.launches``
+    and its ``"wgmma"`` count."""
+    code, Bsz, L, H, P, N, Q = _check(x, a, Bm, Cm, chunk)
+    if variant(Bm.dtype, P, N, Q) != "wgmma":
+        raise ValueError(f"the wgmma kernel takes {WGMMA_BC_DTYPE} B/C at "
+                         f"P = N = {WGMMA_P} and chunk {WGMMA_CHUNK}, got "
+                         f"{Bm.dtype}, P={P}, N={N}, chunk {Q}")
+    x, Bm, Cm = (t if tma_strides(t) else t.contiguous()
+                 for t in (x, Bm, Cm))
+    strides = (*tma_strides(x), *a.stride(), *tma_strides(Bm),
+               *tma_strides(Cm))
+    out = _launch(WGMMA_LIBRARY, "ssd_scan_wgmma_launch", x, a, Bm, Cm,
+                  strides, code, Bsz, L, H, P, N, Q)
+    _count("wgmma")
+    return out
+
+
+def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+                  Cm: torch.Tensor, chunk: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel :func:`variant` picks, on the current stream (no
+    synchronisation).
+
+    ``x [B, L, H, P]`` and ``a [B, L, H]`` float32, ``Bm, Cm [B, L, N]``
+    (f32, bf16 or f16), on one CUDA device.  Returns
+    ``(y [B, L, H, P], final_state [B, H, P, N])``, fp32 and contiguous,
+    for a zero initial state and chunks of ``min(chunk, L)`` steps.  Raises
+    on anything else, and when the build or the launch fails.
+    ``ssd_scan_cuda.launches`` counts every launch,
+    ``ssd_scan_cuda.by_variant`` each kernel's."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
+    Q = min(int(chunk), int(x.shape[1]))
+    if variant(Bm.dtype, int(x.shape[-1]), int(Bm.shape[-1]), Q) == "wgmma":
+        return ssd_scan_wgmma(x, a, Bm, Cm, chunk)
+    return ssd_scan_simt(x, a, Bm, Cm, chunk)
+
+
+def _count(name: str) -> None:
+    ssd_scan_cuda.launches += 1
+    ssd_scan_cuda.by_variant[name] += 1
+
+
+def reset_counts() -> None:
+    """Set every launch count to 0."""
+    ssd_scan_cuda.launches = 0
+    ssd_scan_cuda.by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+reset_counts()

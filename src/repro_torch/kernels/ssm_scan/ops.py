@@ -1,9 +1,10 @@
 """Public SSD-scan op in the model layout.
 
-Port of ``src/repro/kernels/ssm_scan/ops.py``.  Runs the CUDA kernel on
-CUDA tensors and the plain chunked scan (``ref.ssd_chunked_ref`` from a
-zero state) on CPU tensors.  No head-major copies and no padding: the
-kernel reads the model layout and pads the tail chunk itself.
+Port of ``src/repro/kernels/ssm_scan/ops.py``.  Runs the CUDA kernel that
+``kernel.variant`` picks on CUDA tensors and the plain chunked scan
+(``ref.ssd_chunked_ref`` from a zero state) on CPU tensors.  No head-major
+copies and no padding: the kernels read the model layout and pad the tail
+chunk themselves.
 """
 
 from __future__ import annotations

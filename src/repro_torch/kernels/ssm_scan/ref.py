@@ -3,7 +3,8 @@
 Port of ``src/repro/kernels/ssm_scan/ref.py`` and of
 ``src/repro/models/ssm.py::ssd_chunked_ref``.  :func:`ssd_chunked_ref` is
 the chunked scan (intra-chunk decay matmuls plus the inter-chunk state
-carry), all fp32; with a zero initial state it is the CUDA kernel's plain
+carry), all fp32 (float64 when x is float64, for an oracle of the fp32
+kernels); with a zero initial state it is the CUDA kernels' plain
 version.  :func:`ssd_scan_sequential` is the literal per-step recurrence.
 """
 
@@ -24,7 +25,7 @@ def ssd_chunked_ref(
     init_state: Optional[torch.Tensor] = None,  # [B, H, P, N]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan -> ``(y [B, L, H, P], final_state [B, H, P, N])``,
-    both fp32."""
+    both fp32, or both float64 when ``x`` is float64."""
     Bsz, L, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, L)
@@ -38,11 +39,11 @@ def ssd_chunked_ref(
         Cm = F.pad(Cm, (0, 0, 0, pad))
     Lp = L + pad
     nc = Lp // Q
-    f32 = torch.float32
-    xc = x.reshape(Bsz, nc, Q, H, P).to(f32)
-    ac = a.reshape(Bsz, nc, Q, H).to(f32)
-    Bc = Bm.reshape(Bsz, nc, Q, N).to(f32)
-    Cc = Cm.reshape(Bsz, nc, Q, N).to(f32)
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xc = x.reshape(Bsz, nc, Q, H, P).to(ct)
+    ac = a.reshape(Bsz, nc, Q, H).to(ct)
+    Bc = Bm.reshape(Bsz, nc, Q, N).to(ct)
+    Cc = Cm.reshape(Bsz, nc, Q, N).to(ct)
 
     la = torch.log(torch.clamp_min(ac, 1e-20))
     cum = torch.cumsum(la, dim=2)                      # [B,nc,Q,H] inclusive
@@ -67,8 +68,8 @@ def ssd_chunked_ref(
                           Bc)
     chunk_decay = torch.exp(cum[:, :, -1, :])          # [B,nc,H]
 
-    s = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
-         if init_state is None else init_state.to(f32))
+    s = (torch.zeros((Bsz, H, P, N), dtype=ct, device=x.device)
+         if init_state is None else init_state.to(ct))
     prev = []
     for c in range(nc):
         prev.append(s)

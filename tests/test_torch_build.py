@@ -1,6 +1,7 @@
 """The port's kernel builds (``repro_torch.kernels._build``): the name of a
-built library covers every file under its ``csrc/`` and every compiler
-flag, so an edited source, header or flag never reuses a stale build.
+built library covers every file under its ``csrc/``, every shared header
+they include from outside it, and every compiler flag, so an edited
+source, header or flag never reuses a stale build.
 Nothing here runs ``nvcc``: the compiler is replaced by a stub that fails
 the test if it is called."""
 
@@ -18,7 +19,8 @@ from repro_torch.kernels.ssm_scan import kernel as K3  # noqa: E402
 
 LIBRARIES = {"fused_fold": K1.LIBRARY, "flash_attention": K2.LIBRARY,
              "flash_attention_wgmma": K2.WGMMA_LIBRARY,
-             "ssd_scan": K3.LIBRARY}
+             "ssd_scan": K3.LIBRARY, "ssd_scan_wgmma": K3.WGMMA_LIBRARY}
+SHARED_HEADER = "hopper.cuh"
 
 
 @pytest.fixture(autouse=True)
@@ -105,11 +107,11 @@ def test_start_and_get_reuse_a_finished_build(csrc, tmp_path, monkeypatch):
 @pytest.mark.parametrize("name", sorted(LIBRARIES))
 def test_repo_libraries(name):
     """Each of the port's libraries has its source under a ``csrc/``; only
-    the wgmma flash-attention library links libcuda."""
+    the two wgmma libraries link libcuda (for their tensor maps)."""
     L = LIBRARIES[name]
     assert L.source.is_file() and L.source.parent.name == "csrc"
     assert L.source.stem == name
-    want = ("-lcuda",) if name == "flash_attention_wgmma" else ()
+    want = ("-lcuda",) if name.endswith("_wgmma") else ()
     assert L.extra_flags == want
     assert L.target().name.startswith(f"{name}-")
 
@@ -117,3 +119,59 @@ def test_repo_libraries(name):
 def test_the_two_flash_attention_builds_share_csrc_but_not_a_key():
     assert K2.LIBRARY.source.parent == K2.WGMMA_LIBRARY.source.parent
     assert K2.LIBRARY.target() != K2.WGMMA_LIBRARY.target()
+
+
+def test_the_two_ssd_scan_builds_share_csrc_but_not_a_key():
+    assert K3.LIBRARY.source.parent == K3.WGMMA_LIBRARY.source.parent
+    assert K3.LIBRARY.target() != K3.WGMMA_LIBRARY.target()
+
+
+@pytest.fixture
+def shared(tmp_path):
+    """Two kernel packages whose sources include one header under
+    ``common/``, which includes a second one."""
+    common = tmp_path / "common"
+    common.mkdir()
+    (common / "hopper.cuh").write_text('#pragma once\n#include "ptx.cuh"\n')
+    (common / "ptx.cuh").write_text("#pragma once\n")
+    libs = []
+    for pkg in ("one", "two"):
+        d = tmp_path / pkg / "csrc"
+        d.mkdir(parents=True)
+        (d / f"{pkg}.cu").write_text(
+            '#include "../../common/hopper.cuh"\nint f() { return 1; }\n')
+        libs.append(CudaLibrary(d / f"{pkg}.cu", lambda _: None))
+    return common, libs
+
+
+@pytest.mark.parametrize("edit", ["hopper.cuh", "ptx.cuh"])
+def test_editing_a_shared_header_changes_both_keys(shared, edit):
+    common, libs = shared
+    before = [L.target() for L in libs]
+    f = common / edit
+    f.write_text(f.read_text() + "// edited\n")
+    after = [L.target() for L in libs]
+    assert all(a != b for a, b in zip(after, before))
+
+
+def test_headers_nobody_includes_do_not_change_the_keys(shared):
+    common, libs = shared
+    before = [L.target() for L in libs]
+    (common / "unused.cuh").write_text("#pragma once\n")
+    assert [L.target() for L in libs] == before
+
+
+def test_shared_headers_are_inputs_after_the_own_files(shared):
+    common, libs = shared
+    names = [p.name for p in libs[0].inputs()]
+    assert names == ["one.cu", "hopper.cuh", "ptx.cuh"]
+
+
+@pytest.mark.parametrize("name", ["flash_attention_wgmma", "ssd_scan_wgmma"])
+def test_wgmma_libraries_hash_the_shared_hopper_header(name):
+    """Both wgmma sources include ``kernels/common/hopper.cuh``: it is one
+    of their build inputs, so editing it rebuilds both."""
+    inputs = LIBRARIES[name].inputs()
+    hdr = [p for p in inputs if p.name == SHARED_HEADER]
+    assert len(hdr) == 1 and hdr[0].parent.name == "common"
+    assert hdr[0].parent.parent == LIBRARIES[name].source.parents[2]

@@ -58,6 +58,7 @@ def test_no_jax_in_port_sources():
              "scaled_dot_product_attention", "torch.compile", "triton")
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += list((ROOT / "src" / "repro_torch").rglob("*.cu"))
+    files += list((ROOT / "src" / "repro_torch").rglob("*.cuh"))
     assert len(files) > 40
     for f in files + [ROOT / "chip_smoke.py"]:
         text = f.read_text()

@@ -3,9 +3,11 @@ reference's ``ssd_scan`` (the Pallas kernel in interpret mode, and its
 ``impl="ref"`` sequential recurrence) and ``ssd_chunked_ref``, on the cases
 of ``tests/test_kernels.py``.
 
-On the CPU the op runs the kernel's plain version (the chunked scan from a
-zero state); the CUDA kernel is held to it on the card by
-``chip_smoke.py``.  Tolerance: the reference suite's 1e-4.
+On the CPU the op runs the kernels' plain version (the chunked scan from a
+zero state); the two CUDA kernels are held to it on the card by
+``chip_smoke.py``.  Here: which kernel a call takes, what TMA can read as
+it lies, and a plain emulation of the wgmma kernel's split-precision
+arithmetic held to the reference.  Tolerance: the reference suite's 1e-4.
 """
 
 import numpy as np
@@ -22,6 +24,8 @@ from repro_torch.kernels.ssm_scan import (  # noqa: E402
     ssd_scan,
     ssd_scan_sequential,
 )
+from repro_torch.configs import all_configs  # noqa: E402
+from repro_torch.kernels.ssm_scan import kernel as K3  # noqa: E402
 from repro_torch.kernels.ssm_scan.kernel import ssd_scan_cuda  # noqa: E402
 
 TOL = 1e-4
@@ -116,3 +120,233 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x, a, Bm, Cm = (torch.from_numpy(t) for t in inputs(1, 8, 1, 4, 4, 0))
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan_cuda(x, a, Bm, Cm, 4)
+
+
+# ---- which CUDA kernel a call takes, and what TMA can read as it lies ----
+
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, F16])
+@pytest.mark.parametrize("P", [16, 32, 64])
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("Q", [16, 64, 100, 128])
+def test_dispatch_rule(dtype, P, N, Q):
+    """bf16 B/C at P = N = 64 with chunks of 128 take the wgmma kernel;
+    everything else keeps the simt kernel."""
+    wgmma = dtype == BF16 and P == N == 64 and Q == 128
+    assert K3.variant(dtype, P, N, Q) == ("wgmma" if wgmma else "simt")
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_every_ssm_config_in_its_compute_dtype(reduced):
+    """zamba2-1.2b at full size serves on the wgmma kernel (bf16 compute,
+    P = N = 64, chunk 128, prompts of at least 128 tokens); its reduced
+    config (f32, P = N = 16, chunk 16) on the simt kernel."""
+    got = {name: K3.variant(cfg.dtype, cfg.ssm.head_dim, cfg.ssm.d_state,
+                            min(cfg.ssm.chunk, 2048))
+           for name, cfg in all_configs(reduced).items()
+           if cfg.ssm is not None and "ssm" in cfg.layer_kinds()}
+    assert got == {"zamba2_1p2b": "simt" if reduced else "wgmma"}
+
+
+def xbc_slices(B, L, N, width, dtype=BF16, start=0):
+    """B and C as column slices ``[start, start + N)`` and
+    ``[start + N, start + 2N)`` of one ``[B, L, width]`` tensor, as the
+    model hands them."""
+    xbc = torch.zeros(B, L, width, dtype=dtype)
+    return xbc[..., start: start + N], xbc[..., start + N: start + 2 * N]
+
+
+@pytest.mark.parametrize("make,want", [
+    # x [B, L, H, P] f32, contiguous, as the model makes it
+    (lambda: torch.zeros(2, 40, 3, 64), (40 * 3 * 64, 3 * 64, 64)),
+    # x as a view with padded heads: (64 + 4) * 4 = 272 bytes
+    (lambda: torch.zeros(2, 40, 3, 68)[..., :64], (40 * 3 * 68, 3 * 68, 68)),
+    # zamba2-1.2b's B and C: slices of xBC [B, L, 4096 + 128] bf16, rows of
+    # 8,448 bytes, bases 8,192 and 8,320 bytes in
+    (lambda: xbc_slices(2, 40, 64, 4096 + 128, start=4096)[0],
+     (40 * 4224, 4224)),
+    (lambda: xbc_slices(2, 40, 64, 4096 + 128, start=4096)[1],
+     (40 * 4224, 4224)),
+    # a slice whose base is 4 x 2 = 8 bytes off 16-byte alignment
+    (lambda: xbc_slices(2, 40, 64, 4096 + 128, start=4)[0], None),
+    # rows of (2 * 64 + 4) * 2 = 264 bytes: not a multiple of 16
+    (lambda: xbc_slices(2, 40, 64, 2 * 64 + 4)[0], None),
+    # size-1 dims: their strides are never stepped, so the row stands in
+    (lambda: torch.zeros(1, 40, 1, 64).as_strided((1, 40, 1, 64),
+                                                  (3, 64, 5, 1)),
+     (64, 64, 64)),
+    (lambda: torch.zeros(1, 40, 64, dtype=BF16).as_strided((1, 40, 64),
+                                                           (7, 64, 1)),
+     (64, 64)),
+    # unit stride missing along P
+    (lambda: torch.zeros(2, 40, 64, 3).transpose(2, 3), None),
+    # B broadcast over the batch: a zero stride
+    (lambda: torch.zeros(1, 40, 64, dtype=BF16).expand(2, 40, 64), None),
+])
+def test_tma_strides(make, want):
+    assert K3.tma_strides(make()) == want
+
+
+@pytest.mark.parametrize("fn", [K3.ssd_scan_wgmma, K3.ssd_scan_simt,
+                                K3.ssd_scan_cuda])
+def test_each_variant_refuses_cpu_tensors(fn):
+    x, a, Bm, Cm = (torch.from_numpy(t) for t in inputs(1, 8, 1, 64, 64, 0))
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(x, a, Bm.to(BF16), Cm.to(BF16), 128)
+
+
+def test_reset_counts():
+    K3.ssd_scan_cuda.launches = 5
+    K3.ssd_scan_cuda.by_variant["wgmma"] = 3
+    K3.reset_counts()
+    assert K3.ssd_scan_cuda.launches == 0
+    assert K3.ssd_scan_cuda.by_variant == {"wgmma": 0, "simt": 0}
+
+
+# ---- the wgmma kernel's precision contract, emulated on the CPU ----------
+
+def _split(v):
+    """hi = bf16(v), lo = bf16(v - hi), both returned as fp32."""
+    hi = v.to(BF16).to(F32)
+    return hi, (v - hi).to(BF16).to(F32)
+
+
+def _product(eq, u, v, u_exact, v_exact):
+    """``einsum(eq, u, v)`` as the kernel's tensor cores compute it: an
+    operand exact in bf16 enters as it is, an fp32 one as its hi/lo split;
+    two fp32 operands give hi.hi + hi.lo + lo.hi; fp32 sums throughout
+    (a product of two bf16 values is exact in fp32)."""
+    if u_exact and v_exact:
+        return torch.einsum(eq, u, v)
+    if u_exact or v_exact:
+        (e, f), swap = ((u, v), False) if u_exact else ((v, u), True)
+        fh, fl = _split(f)
+        parts = [(e, fh), (e, fl)]
+        if swap:
+            parts = [(b, a) for a, b in parts]
+        return sum(torch.einsum(eq, a, b) for a, b in parts)
+    uh, ul = _split(u)
+    vh, vl = _split(v)
+    return (torch.einsum(eq, uh, vh) + torch.einsum(eq, uh, vl)
+            + torch.einsum(eq, ul, vh))
+
+
+def split_precision_scan(x, a, Bm, Cm, chunk, bc_exact):
+    """The chunked scan from a zero state with every product under the
+    split contract (``ssd_scan_wgmma.cu``'s arithmetic): ``x [B, L, H, P]``,
+    ``a [B, L, H]``, ``Bm, Cm [B, L, N]`` fp32 tensors; ``bc_exact`` says
+    that B and C hold bf16 values.  -> ``(y, final_state)``, fp32."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, L)
+    pad = -L % Q
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad), value=1.0)
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
+        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, pad))
+    nc = (L + pad) // Q
+    xc = x.reshape(Bsz, nc, Q, H, P)
+    Bc = Bm.reshape(Bsz, nc, Q, N)
+    Cc = Cm.reshape(Bsz, nc, Q, N)
+    cum = torch.cumsum(torch.log(torch.clamp_min(
+        a.reshape(Bsz, nc, Q, H), 1e-20)), dim=2)           # [B,nc,Q,H]
+    cb = _product("bcin,bcjn->bcij", Cc, Bc, bc_exact, bc_exact)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # [B,nc,i,j,H]
+    low = torch.tril(torch.ones(Q, Q, dtype=torch.bool))[None, None, :, :,
+                                                         None]
+    M = torch.where(low, cb[..., None] * torch.exp(
+        torch.where(low, seg, torch.zeros(()))), torch.zeros(()))
+    S = torch.zeros(Bsz, H, P, N)
+    ys = []
+    for c in range(nc):
+        y = (_product("bin,bhpn->bihp", Cc[:, c], S, bc_exact, False)
+             * torch.exp(cum[:, c])[..., None])
+        y = y + _product("bijh,bjhp->bihp", M[:, c], xc[:, c], False, False)
+        dout = torch.exp(cum[:, c, -1:, :] - cum[:, c])      # [B,Q,H]
+        xd = xc[:, c] * dout[..., None]
+        S = (S * torch.exp(cum[:, c, -1])[:, :, None, None]
+             + _product("bjhp,bjn->bhpn", xd, Bc[:, c], False, bc_exact))
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :L], S
+
+
+def _as_bf16_values(t):
+    return t.astype(np.float32).view(np.uint32) & np.uint32(0xFFFF0000)
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk,bc_bf16,lo", [
+    # tests/test_kernels.py's SSD cases, B/C in fp32 (all split)
+    (1, 64, 1, 16, 16, 16, False, 0.7),
+    (2, 128, 2, 32, 16, 64, False, 0.7),
+    (1, 128, 4, 64, 64, 128, False, 0.7),   # mamba2-native dims
+    (1, 100, 2, 32, 32, 32, False, 0.7),    # padding path
+    (1, 128, 2, 16, 16, 32, False, 0.8),    # the chunk-invariance inputs
+    (1, 256, 1, 16, 16, 64, False, None),   # long decay: x 1, a 0.5
+    # the wgmma kernel's own case: bf16-valued B/C at P = N = 64, Q = 128
+    (2, 512, 2, 64, 64, 128, True, 0.7),
+    (1, 300, 2, 64, 64, 128, True, 0.7),    # ragged tail chunk
+])
+def test_split_precision_contract_meets_the_reference(B, L, H, P, N, chunk,
+                                                      bc_bf16, lo):
+    """The hi/lo bf16 scheme of ``ssd_scan_wgmma.cu``, emulated in plain
+    PyTorch, agrees with the reference's ``ssd_scan`` (Pallas interpret
+    mode and the sequential recurrence) within 1e-4."""
+    if lo is None:
+        arrays = (np.ones((B, L, H, P), np.float32),
+                  np.full((B, L, H), 0.5, np.float32),
+                  np.full((B, L, N), 0.1, np.float32),
+                  np.full((B, L, N), 0.1, np.float32))
+    else:
+        arrays = inputs(B, L, H, P, N, seed=L + P + N, lo=lo)
+    if bc_bf16:
+        arrays = arrays[:2] + tuple(_as_bf16_values(t).view(np.float32)
+                                    for t in arrays[2:])
+    y, s = split_precision_scan(*(torch.from_numpy(t) for t in arrays),
+                                chunk, bc_bf16)
+    assert y.shape == (B, L, H, P) and s.shape == (B, H, P, N)
+    j = [jnp.asarray(t) for t in arrays]
+    for impl in ("pallas", "ref"):
+        yr, sr = ref_scan(*j, chunk=chunk, impl=impl)
+        np.testing.assert_allclose(y.numpy(), np.asarray(yr), rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_allclose(s.numpy(), np.asarray(sr), rtol=TOL,
+                                   atol=TOL)
+
+
+def test_the_emulation_splits_and_does_not_round_once():
+    """The split keeps what one bf16 rounding loses: on fp32 operands the
+    emulation is about 2^-16 from the fp32 product, a single bf16 rounding
+    about 2^-8."""
+    r = np.random.default_rng(3)
+    u = torch.from_numpy(r.normal(size=(64, 128)).astype(np.float32))
+    v = torch.from_numpy(r.normal(size=(128, 64)).astype(np.float32))
+    exact = (u.double() @ v.double())
+    scale = float(exact.abs().max())
+    split = float((_product("ik,kj->ij", u, v, False, False).double()
+                   - exact).abs().max()) / scale
+    once = float(((u.to(BF16).float() @ v.to(BF16).float()).double()
+                  - exact).abs().max()) / scale
+    assert split < 2 ** -14 and once > 2 ** -10
+
+
+def test_chunked_ref_runs_in_float64_for_float64_inputs():
+    """The plain version is also the float64 oracle ``chip_smoke.py``
+    holds both kernels to: given float64 inputs it computes in float64
+    (fp32 inputs stay fp32), and agrees with the literal recurrence."""
+    B, L, H, P, N = 1, 96, 2, 16, 8
+    x, a, Bm, Cm = (torch.from_numpy(t).double()
+                    for t in inputs(B, L, H, P, N, seed=12))
+    y, s = ssd_chunked_ref(x, a, Bm, Cm, 32)
+    assert y.dtype == s.dtype == torch.float64
+    yq, sq = ssd_scan_sequential(
+        x.permute(0, 2, 1, 3).reshape(B * H, L, P),
+        a.permute(0, 2, 1).reshape(B * H, L),
+        Bm[:, None].expand(B, H, L, N).reshape(B * H, L, N),
+        Cm[:, None].expand(B, H, L, N).reshape(B * H, L, N))
+    yq = yq.reshape(B, H, L, P).permute(0, 2, 1, 3)
+    assert float((y - yq.double()).abs().max()) < 1e-5
+    y32, _ = ssd_chunked_ref(x.float(), a.float(), Bm.float(), Cm.float(), 32)
+    assert y32.dtype == torch.float32
