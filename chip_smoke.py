@@ -5,21 +5,28 @@
 
 1. Prints the card's name and power limit.
 2. Builds the five CUDA libraries side by side (one nvcc each, sm_90a):
-   K1 fused fold, K2 flash attention in its two variants (``wgmma`` for
+   K1 fused fold (register-path kernels for G <= 8, a shared-memory one
+   for larger G), K2 flash attention in its two variants (``wgmma`` for
    bf16/f16 at head dims 64 and 128, ``simt`` for the rest), K3 SSD scan
    in its two variants (``wgmma`` for bf16 B/C at P = N = 64 and chunk
    128, ``simt`` for the rest), and logs each kernel's registers and
    spills.
 3. Holds K1 against its plain PyTorch version and the float64 NumPy oracle
-   over bf16/f32/i32/bool payloads, G in {1, 7, 64, the kernel's limit},
-   ragged shapes and NaN/Inf in masked-off rows; two launches must give
-   identical bits.  NaN/Inf/1e20 in valid rows (gids in and out of range)
-   must give the plain version's NaN/Inf positions and finite values.
+   over bf16/f32/i32/bool payloads, G in {1, 2, 7, 64, the kernel's
+   limit}, ragged and one-column shapes and NaN/Inf in masked-off rows,
+   blocks longer than a row-list chunk, wholly masked blocks and row
+   weights -1/0.5/1/0; two launches must give identical bits.
+   NaN/Inf/1e20 in valid rows (gids in and out of range) must give the
+   plain version's NaN/Inf positions and finite values.
 4. Holds K2 and K3 against their plain versions (and K3 against the
    literal recurrence) on the reference kernel tests' shapes and at the
    serving shapes; K2 in f32, bf16 and f16 at head dims 64 and 128 (and
-   qwen3-8b's GQA heads at D 128), K3 with f32 and bf16 B/C, checking
-   which variant ran.
+   qwen3-8b's GQA heads at D 128), K3 with f32 and bf16 B/C, from a zero
+   and from a random initial state, checking which variant ran.  Then one
+   Mamba2 layer of zamba2-1.2b at full width runs ``ssm_full`` over the
+   serving prompt and over its two halves, the second from the first's
+   returned state, in bf16 (wgmma) and fp32 (simt): the chained scans
+   must equal one scan over the same steps.
 5. Drives the population path at full size: the paper's 4,490-subject
    population (Table 3), one float32 91x109x91 MNI152 2 mm volume per
    subject, on ``GridSession(devices=["cuda:0"] * 4)`` with the paper's two
@@ -27,7 +34,9 @@
    repeat, an upload, a remove, a rebalance and
    ``run(MeanProgram(), impl="kernel")`` — and checks it against a float64
    oracle on a voxel subset and against a second session that folds with
-   plain PyTorch.
+   plain PyTorch.  Counts K1's launches by block, then times K1 at three
+   of its blocks: the grouped query's largest ``img:data`` block, the
+   Mean run's block and the ``idx:age`` block.
 6. Serves zamba2-1.2b at full width and depth (38 layers, random weights
    from a seed) through ``ServeEngine(device="cuda")``: 8 requests, 2048
    prompt tokens, 64 new tokens, greedy; counts K2/K3 launches per prefill
@@ -37,9 +46,10 @@
    activations: the wgmma variants of K2 and K3; fp32: their simt
    variants).
 7. Times K2's two variants, SDPA and the plain version in turns at the
-   serving call and at qwen3-8b's D=128 GQA shape, and K3's two variants
-   and its plain version in turns at its serving call, with each one's
-   distance to a float64 run of the plain version.
+   serving call (and the simt kernel, SDPA and the plain version in fp32,
+   the simt kernel's serving dtype) and at qwen3-8b's D=128 GQA shape,
+   and K3's two variants and its plain version in turns at its serving
+   call, with each one's distance to a float64 run of the plain version.
 8. Prints one JSON line of kernel measurements, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -75,6 +85,7 @@ from repro_torch.data.pipeline import (  # noqa: E402
     population_covariates,
 )
 from repro_torch.kernels.fused_fold import kernel as K  # noqa: E402
+from repro_torch.kernels.fused_fold import ops as K_ops  # noqa: E402
 from repro_torch.kernels.fused_fold.ops import (  # noqa: E402
     fused_fold,
     kernel_hbm_bytes,
@@ -98,6 +109,7 @@ from repro_torch.models.model import (  # noqa: E402
     cast_for_compute,
     pad_caches,
 )
+from repro_torch.models.params import Init  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 VOLUME = (91, 109, 91)          # MNI152 2 mm grid
@@ -148,8 +160,8 @@ def kernel_sweep():
     cases = 0
     gmax = max_groups_for_smem(NAMES)
     for kind in ("f32", "bf16", "i32", "bool"):
-        for G in (1, 7, 64, gmax):
-            for R, F in ((1, 1), (37, 130), (1000, 4097)):
+        for G in (1, 2, 7, 64, gmax):
+            for R, F in ((1, 1), (37, 130), (256, 1), (1000, 4097)):
                 x, m, g = sweep_inputs(kind, R, F, G, rng)
                 xd, md, gd = x.cuda(), torch.from_numpy(m).cuda(), \
                     torch.from_numpy(g).cuda()
@@ -233,6 +245,71 @@ def nonfinite_sweep():
                                             .all()),
                       f"no poisoned sums, or a poisoned count: {where}")
                 cases += 1
+    return cases
+
+
+def weighted_oracle(x, m, g, G):
+    """The fold in float64 NumPy for any row weights: count[g] sums m over
+    rows with m != 0 and gid g; s_k[g] sums m * x^k over rows with m > 0
+    and gid g (gids outside [0, G) add nothing)."""
+    x = x.astype(np.float64)
+    keep = (m != 0) & (g >= 0) & (g < G)
+    pos = keep & (m > 0)
+    out = {"count": np.zeros(G)}
+    np.add.at(out["count"], g[keep], m[keep].astype(np.float64))
+    for k in range(1, 5):
+        acc = np.zeros((G, x.shape[1]))
+        np.add.at(acc, g[pos], m[pos, None] * x[pos] ** k)
+        out[f"s{k}"] = acc
+    return out
+
+
+def k1_edge_sweep():
+    """Blocks the main sweep does not reach: longer than one row-list chunk
+    (``LIST_ROWS`` rows), wholly masked (zeros and a zero count), and row
+    weights -1, 0.5, 1, 0 with gids outside [0, G), straight through
+    ``fused_fold_cuda``; on the register (G <= 8) and shared-memory paths.
+    Each against the plain version and the float64 oracle; a re-launch
+    gives the same bits."""
+    rng = np.random.default_rng(3)
+    cases = 0
+    long_rows = 2 * K.LIST_ROWS + 808
+    for what, R, F in (("long", long_rows, 257), ("masked", 300, 1000),
+                       ("weights", 300, 1000), ("weights", 256, 1),
+                       ("weights", long_rows, 33)):
+        for G in (1, 2, 7, 64):
+            x = rng.normal(size=(R, F)).astype(np.float32)
+            g = rng.integers(-1, G + 1, R).astype(np.int32)
+            if what == "long":
+                m = (rng.random(R) > 0.3).astype(np.float32)
+            elif what == "masked":
+                m = np.zeros(R, np.float32)
+            else:
+                m = rng.choice(np.array([-1, 0.5, 1, 0], np.float32), R)
+            x[m <= 0] = np.nan          # never read: zeroed before powers
+            xd, md, gd = (torch.from_numpy(t).cuda() for t in (x, m, g))
+            got = K.fused_fold_cuda(xd, gd, md, G, NAMES)
+            again = K.fused_fold_cuda(xd, gd, md, G, NAMES)
+            plain = K.fused_fold_torch(xd, gd, md, G, NAMES)
+            torch.cuda.synchronize()
+            oracle = weighted_oracle(x, m, g, G)
+            where = f"{what} G={G} R={R} F={F}"
+            for n in NAMES:
+                a = got[n].cpu()
+                check(torch.equal(a.view(torch.int32),
+                                  again[n].cpu().view(torch.int32)),
+                      f"re-launch bits differ: {where} {n}")
+                for want, label in ((plain[n].cpu(), "plain"),
+                                    (torch.from_numpy(oracle[n]), "f64")):
+                    want = want.to(torch.float64)
+                    tol = 0.0 if n == "count" else 1e-3
+                    check(torch.allclose(a.double(), want, rtol=tol,
+                                         atol=0.0 if n == "count" else 1e-2),
+                          f"K1 vs {label}: {where} {n} max err "
+                          f"{(a.double() - want).abs().max():.3g}")
+                if what == "masked":
+                    check(bool((a == 0).all()), f"masked block {n} not 0")
+            cases += 1
     return cases
 
 
@@ -378,6 +455,112 @@ def k3_sweep(gen):
     return len(K3_CASES), worst
 
 
+#: K3 from a random initial state: f32 B/C (simt), bf16 B/C at P = N = 64
+#: and chunk 128 (both kernels: the wgmma one as serving picks it, the
+#: simt one called directly), incl. a ragged L and the serving shape
+K3_STATE_CASES = [
+    (1, 64, 1, 16, 16, 16, F32),
+    (1, 100, 2, 32, 32, 32, F32),
+    (1, 128, 4, 64, 64, 128, F32),
+    (1, 128, 4, 64, 64, 128, BF16),
+    (2, 300, 3, 64, 64, 128, BF16),
+    (8, 2048, 64, 64, 64, 128, BF16),
+]
+
+
+def k3_state_sweep(gen):
+    """Each kernel from a random initial state against ``ssd_chunked_ref``
+    from that state, within the K3 check's 1e-4 x max(1, max|y|, max|S|);
+    -> ({variant: (cases, worst error)}."""
+    worst = {}
+    for B, L, H, P, N, chunk, bdt in K3_STATE_CASES:
+        x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, bdt, 0.7)
+        s0 = torch.randn(B, H, P, N, generator=gen, device=DEV)
+        Q = min(chunk, L)
+        yp, sp = ssd_chunked_ref(x, a, Bm, Cm, Q, s0)
+        scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
+        runs = [("simt", K3.ssd_scan_simt)]
+        if K3.variant(bdt, P, N, Q) == "wgmma":
+            runs.append(("wgmma", K3.ssd_scan_wgmma))
+        for ran, fn in runs:
+            y, s = fn(x, a, Bm, Cm, chunk, init_state=s0)
+            torch.cuda.synchronize()
+            err = max(float((y - yp).abs().max()),
+                      float((s - sp).abs().max()))
+            check(err <= K3_TOL * scale,
+                  f"K3 ({ran}) from a state {(B, L, H, P, N, chunk, bdt)}: "
+                  f"max err {err:.3g} (scale {scale:.3g})")
+            n, w = worst.get(ran, (0, 0.0))
+            worst[ran] = (n + 1, max(w, err / scale))
+    return worst
+
+
+def continuity_check(gen):
+    """One Mamba2 layer of zamba2-1.2b at full width (d_model 2048, 64
+    heads of P 64, N 64, chunk 128), random weights: ``ssm_full`` over the
+    serving prompt (8 x 2048 tokens) against 1024 tokens and then 1024 from
+    the returned conv and SSM state, with bf16 activations (the wgmma
+    kernel, as serving runs it) and fp32 (the simt kernel).  The scan
+    calls are captured: the chained scans (the second from the first's
+    state) must equal one scan over the same 2048 steps within the K3
+    check's 1e-4 x max(1, max|y|, max|S|); their inputs and the conv state
+    are compared with the whole prompt's.  -> {dtype: measurements}."""
+    base = zamba2_1p2b.full()
+    p = ssm_mod.init_ssm(base, Init(gen, DEV))
+    out = {}
+    for dt in (BF16, F32):
+        cfg = dataclasses.replace(base, dtype=dt)
+        x = torch.randn(SERVE_B, SERVE_PROMPT, cfg.d_model, generator=gen,
+                        device=DEV).to(dt)
+        calls = []
+        inner = ssm_mod.ssd_scan
+
+        def capture(*args, **kw):
+            y, s = inner(*args, **kw)
+            calls.append((args[:4], y, s))
+            return y, s
+
+        before = dict(K3.ssd_scan_cuda.by_variant)
+        ssm_mod.ssd_scan = capture
+        try:
+            _, whole = ssm_mod.ssm_full(cfg, p, x)
+            h = SERVE_PROMPT // 2
+            _, mid = ssm_mod.ssm_full(cfg, p, x[:, :h])
+            _, end = ssm_mod.ssm_full(cfg, p, x[:, h:], mid)
+        finally:
+            ssm_mod.ssd_scan = inner
+        ran = "wgmma" if dt == BF16 else "simt"
+        check(K3.ssd_scan_cuda.by_variant[ran] == before[ran] + 3,
+              f"continuity ({dt}): the three scans did not all take {ran}")
+        (in_w, y_w, s_w), (in_1, y_1, _), (in_2, y_2, s_2) = calls
+        joined = [torch.cat([u, v], 1) for u, v in zip(in_1, in_2)]
+        y_one, s_one = K3.ssd_scan_cuda(*joined, base.ssm.chunk)
+        torch.cuda.synchronize()
+        y_cat = torch.cat([y_1, y_2], 1)
+        scale = max(1.0, float(y_one.abs().max()), float(s_one.abs().max()))
+        err = max(float((y_cat - y_one).abs().max()),
+                  float((s_2 - s_one).abs().max()))
+        check(err <= K3_TOL * scale,
+              f"continuity ({dt}): 1024 + 1024 from the state vs one scan:"
+              f" max err {err:.3g} (scale {scale:.3g})")
+        check(torch.equal(end["ssm"], s_2), "continuity: returned state")
+        out[str(dt).replace("torch.", "")] = {
+            "variant": ran, "err": err, "scale": scale,
+            "input_gap": max(float((u.float() - v.float()).abs().max())
+                             for u, v in zip(joined, in_w)),
+            "vs_whole": max(float((y_cat - y_w).abs().max()),
+                            float((s_2 - s_w).abs().max())),
+            "conv_gap": float((end["conv"].float()
+                               - whole["conv"].float()).abs().max()),
+        }
+        del calls, y_one, s_one, y_cat, joined
+    # the comparison launches are not the main path's
+    K3.reset_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ----------------------------------------------------------------------
 # phase 5: the population path at full size
 # ----------------------------------------------------------------------
@@ -474,8 +657,37 @@ def assert_trees_close(a, b, what):
         check(ok, f"{what}: max err {(a.double() - b.double()).abs().max()}")
 
 
+@contextlib.contextmanager
+def k1_shapes():
+    """Count the fused folds by block: ``{(R, F, G, names): calls}``,
+    through the op's one call site of the kernel wrapper (no sync)."""
+    shapes = {}
+    inner = K_ops.fused_fold_block
+
+    def record(x, gids, mask, num_groups, names):
+        key = (int(x.shape[0]), int(x.shape[1]), int(num_groups),
+               tuple(names))
+        shapes[key] = shapes.get(key, 0) + 1
+        return inner(x, gids, mask, num_groups, names)
+
+    K_ops.fused_fold_block = record
+    try:
+        yield shapes
+    finally:
+        K_ops.fused_fold_block = inner
+
+
 def main_path(table):
     """Phases (a)-(f); returns the report lines and the measurements."""
+    with k1_shapes() as shapes:
+        final, out = _main_path(table)
+    out["k1_shapes"] = shapes
+    check(sum(shapes.values()) == out["launches"],
+          f"K1 launches {out['launches']} != folds by shape {shapes}")
+    return final, out
+
+
+def _main_path(table):
     out = {}
     s = GridSession(table, devices=["cuda:0"] * 4, nodes=NODES)
     regions = list(table.regions)
@@ -641,7 +853,65 @@ def event_ms(fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
-def measure_block(table):
+def device_ms(fn, reps=20):
+    """The card's time for one call of ``fn``: the profiler's device
+    kernel time over ``reps`` calls, without the host's gaps between
+    launches (which set the pace of a loop of small launches)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(evt.time_range.elapsed_us() for evt in prof.events()
+             if evt.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps
+
+
+def fold_bound(sel, R, F, G, names, itemsize=4):
+    """The least time of one fold on the card: the selected rows' payload,
+    the mask and gids, and the sums moved once; the powers and weighted
+    adds of the selected elements at the fp32 rate.  -> (ms, bound_by)."""
+    n_wide = sum(1 for n in names if n != "count")
+    top = max([int(n[1]) for n in names if n != "count"], default=0)
+    need = sel * F * itemsize + R * 8 + (n_wide * G * F + G) * 4
+    ops = sel * F * (2 * n_wide + max(0, top - 1)) + sel
+    b_ms, o_ms = need / HBM_BPS * 1e3, ops / FP32_FLOPS * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations"), need
+
+
+def time_fold(x, gd, mf, G, names):
+    """K1 against its plain version on one block, then its time, the plain
+    version's and one ``index_add_`` of the selected rows' payload (Σx
+    only, the nearest single PyTorch call).  Comparison launches do not
+    count."""
+    before = K.fused_fold_cuda.launches
+    got = K.fused_fold_cuda(x, gd, mf, G, names)
+    plain = K.fused_fold_torch(x, gd, mf, G, names)
+    torch.cuda.synchronize()
+    err = max(float((got[n] - plain[n]).abs().max()) for n in names)
+    for n in names:
+        check(torch.allclose(got[n], plain[n], rtol=1e-4, atol=1e-3),
+              f"K1 block {tuple(x.shape)} G={G} vs plain {n}")
+    ms = event_ms(lambda: K.fused_fold_cuda(x, gd, mf, G, names), 50)
+    dev_ms = device_ms(lambda: K.fused_fold_cuda(x, gd, mf, G, names), 50)
+    plain_ms = event_ms(lambda: K.fused_fold_torch(x, gd, mf, G, names), 5)
+    dump = torch.where(mf > 0, gd.long(), torch.full_like(gd.long(), G))
+    acc = torch.zeros((G + 1, x.shape[1]), dtype=torch.float32, device=DEV)
+    library_ms = event_ms(lambda: acc.index_add_(0, dump, x), 5)
+    K.fused_fold_cuda.launches = before
+    return err, ms, dev_ms, plain_ms, library_ms
+
+
+def measure_block(table, shapes):
+    """K1 at the main path's blocks, each timed alone: the largest
+    region's ``img:data`` block of the grouped query (its pow2 bucket, the
+    rows aged 20-60 selected, G = 2 by sex, all five sums); the Mean run's
+    most frequent block (``shapes``: its rows of that region, all real,
+    G = 1, its sums); and the same region's ``idx:age`` block (``[bucket x
+    1]``, as the grouped query folds it)."""
     region = max(table.regions, key=lambda r: r.num_rows(table.keys))
     host = table.region_column(region, "img", "data")
     rows = len(host)
@@ -657,40 +927,43 @@ def measure_block(table):
     g[:rows] = table.column("idx", "sex")[sl]
     md, gd = torch.from_numpy(m).cuda(), torch.from_numpy(g).cuda()
     mf = md.float()
-    G, F = 2, x.shape[1]
-
-    before = K.fused_fold_cuda.launches
-    got = K.fused_fold_cuda(x, gd, mf, G, NAMES)
-    plain = K.fused_fold_torch(x, gd, mf, G, NAMES)
-    torch.cuda.synchronize()
-    err = max(float((got[n] - plain[n]).abs().max()) for n in NAMES)
-    for n in NAMES:
-        check(torch.allclose(got[n], plain[n], rtol=1e-4, atol=1e-3),
-              f"main-path block kernel vs plain {n}")
-    ms = event_ms(lambda: K.fused_fold_cuda(x, gd, mf, G, NAMES))
-    plain_ms = event_ms(lambda: K.fused_fold_torch(x, gd, mf, G, NAMES), 5)
-    # yardstick: one index_add_ of the selected rows' payload (Σx only)
-    dump = torch.where(md, gd.long(), torch.full_like(gd.long(), G))
-    acc = torch.zeros((G + 1, F), dtype=torch.float32, device=DEV)
-    library_ms = event_ms(lambda: acc.index_add_(0, dump, x), 5)
-    K.fused_fold_cuda.launches = before       # comparison launches
-
+    F = x.shape[1]
     sel = int(m.sum())
-    need_bytes = sel * F * 4 + bucket * 8 + (4 * G * F + G) * 4
-    ops = sel * F * 11 + sel
-    bound_bytes_ms = need_bytes / HBM_BPS * 1e3
-    bound_ops_ms = ops / FP32_FLOPS * 1e3
-    hbm = kernel_hbm_bytes(bucket, F, 4, NAMES, G)
-    return {
-        "rows": rows, "bucket": bucket, "selected": sel, "F": F,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms,
-        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms
-        else "operations",
-        "kernel_hbm_gbps": hbm / ms / 1e6,
-        "need_gbps": need_bytes / ms / 1e6,
-    }
+    blocks = {"grouped": (x, gd, mf, 2, NAMES, sel, rows)}
+
+    mean_key = max((k for k in shapes if k[2] == 1 and k[1] == F),
+                   key=lambda k: shapes[k], default=None)
+    check(mean_key is not None, f"no G=1 fold of F={F} on the main path: "
+                                f"{shapes}")
+    R_mean, names_mean = mean_key[0], mean_key[3]
+    blocks["mean"] = (x[:R_mean].contiguous(),
+                      torch.zeros(R_mean, dtype=torch.int32, device=DEV),
+                      (torch.arange(R_mean, device=DEV) < rows).float(), 1,
+                      names_mean, min(R_mean, rows), min(R_mean, rows))
+    xa = torch.zeros((bucket, 1), dtype=torch.float32)
+    xa[:rows, 0] = torch.from_numpy(age.astype(np.float32))
+    blocks["age"] = (xa.cuda(), gd, mf, 2, NAMES, sel, rows)
+
+    out = {}
+    for name, (xb, gb, mb, G, names, nsel, real) in blocks.items():
+        err, ms, dev_ms, plain_ms, library_ms = time_fold(xb, gb, mb, G,
+                                                          names)
+        bound_ms, bound_by, need = fold_bound(nsel, xb.shape[0],
+                                              xb.shape[1], G, names)
+        hbm = kernel_hbm_bytes(xb.shape[0], xb.shape[1], 4, names, G)
+        out[name] = {
+            "rows": real, "bucket": xb.shape[0], "selected": nsel,
+            "F": xb.shape[1], "G": G, "names": names,
+            "calls": shapes.get((xb.shape[0], xb.shape[1], G,
+                                 tuple(names)), 0),
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "kernel_hbm_gbps": hbm / ms / 1e6,
+            "need_gbps": need / ms / 1e6,
+        }
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -716,12 +989,13 @@ BF16_MEAN_RATIO, BF16_MAX_RATIO = 1.10, 1.25
 @contextlib.contextmanager
 def plain_kernels():
     """The model's two kernel calls pointed at the kernels' plain versions
-    (``attention_ref``; ``ssd_chunked_ref`` from a zero state); undone on
-    exit.  The wrappers are never reached while it is active."""
+    (``attention_ref``; ``ssd_chunked_ref`` from the given state); undone
+    on exit.  The wrappers are never reached while it is active."""
     saved = attention_mod.flash_attention, ssm_mod.ssd_scan
     attention_mod.flash_attention = attention_ref
-    ssm_mod.ssd_scan = lambda x, a, Bm, Cm, chunk: ssd_chunked_ref(
-        x, a, Bm, Cm, min(chunk, x.shape[1]))
+    ssm_mod.ssd_scan = (
+        lambda x, a, Bm, Cm, chunk, init_state=None: ssd_chunked_ref(
+            x, a, Bm, Cm, min(chunk, x.shape[1]), init_state))
     try:
         yield
     finally:
@@ -915,10 +1189,12 @@ K2_TIMED = {"zamba2": (SERVE_B, SERVE_HEADS, SERVE_HEADS, SERVE_PROMPT, 64),
             "qwen3_d128": (SERVE_B, 32, 8, SERVE_PROMPT, 128)}
 
 
-def measure_k2(gen, B, H, Hkv, S, D):
+def measure_k2(gen, B, H, Hkv, S, D, f32=False):
     """K2's two variants, SDPA and the plain version on one bf16 causal
     call, timed in turns (wgmma, simt, SDPA, plain, then backwards); each
-    time is the mean of its two turns."""
+    time is the mean of its two turns.  With ``f32``, also the simt
+    kernel, SDPA and the plain version on the same call in fp32, the
+    simt kernel's dtype on the serving path (``"simt_f32"``)."""
     q = torch.randn(B, S, H, D, generator=gen, device=DEV).to(BF16)
     k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=DEV).to(BF16)
             for _ in range(2))
@@ -945,6 +1221,24 @@ def measure_k2(gen, B, H, Hkv, S, D):
                               enable_gqa=Hkv != H), 20),
         "plain": (lambda: attention_ref(q, k, v, scale), 3),
     }
+    if f32:
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        want32 = attention_ref(q32, k32, v32, scale)
+        got32 = K2.flash_attention_simt(q32, k32, v32, scale)
+        torch.cuda.synchronize()
+        errs["simt_f32"] = float((got32 - want32).abs().max())
+        check(torch.allclose(got32, want32, rtol=K2_TOL[F32],
+                             atol=K2_TOL[F32]),
+              f"K2 simt f32 at {(B, H, Hkv, S, D)}: max err "
+              f"{errs['simt_f32']:.3g}")
+        del got32, want32
+        runs.update({
+            "simt_f32": (lambda: K2.flash_attention_simt(q32, k32, v32,
+                                                         scale), 5),
+            "sdpa_f32": (lambda: sdpa(q32, k32, v32, is_causal=True,
+                                      scale=scale, enable_gqa=Hkv != H), 5),
+            "plain_f32": (lambda: attention_ref(q32, k32, v32, scale), 3),
+        })
     turns = {name: [] for name in runs}
     for order in (list(runs), list(runs)[::-1]):
         for name in order:
@@ -959,6 +1253,10 @@ def measure_k2(gen, B, H, Hkv, S, D):
     entry = {name: bound_entry(errs[name], ms[name], ms["plain"],
                                ms["sdpa"], flops, nbytes)
              for name in ("wgmma", "simt")}
+    if f32:
+        entry["simt_f32"] = bound_entry(errs["simt_f32"], ms["simt_f32"],
+                                        ms["plain_f32"], ms["sdpa_f32"],
+                                        flops, 2 * nbytes, FP32_FLOPS)
     entry["turns"] = turns
     return entry
 
@@ -1018,9 +1316,10 @@ def measure_k3(gen):
     return entry
 
 
-def bound_entry(err, ms, plain_ms, library_ms, flops, nbytes):
+def bound_entry(err, ms, plain_ms, library_ms, flops, nbytes,
+                peak=BF16_FLOPS):
     bytes_ms = nbytes / HBM_BPS * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
+    ops_ms = flops / peak * 1e3
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1067,6 +1366,43 @@ def report_serve(sv, card):
         f"{pm:.4g} mean {pmean:.3g} (max |logit| {sv['logit_absmax']:.3g})")
 
 
+def ptxas_entries(text):
+    """``[(kernel, registers, spill store bytes, spill load bytes)]`` from
+    an ``-Xptxas -v`` report."""
+    out, name, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1))) + spill)
+            name, spill = None, (0, 0)
+    return out
+
+
+def report_k1_ptxas(text):
+    """K1's kernels: registers of the f32 register-path instantiations
+    (groups compiled, powers), the others', and any that spill."""
+    entries = ptxas_entries(text)
+    f32 = []
+    for name, regs, st, ld in entries:
+        m = re.search(r"fold_registers_kernelIfLi(\d)ELi(\d)E", name)
+        if m:
+            f32.append(f"G{m.group(1)}xP{m.group(2)}: {regs}")
+        elif "fold_shared_kernelIf" in name or "count_kernel" in name:
+            f32.append(f"{name.split('_kernel')[0].rsplit('_', 1)[-1]}: "
+                       f"{regs}")
+    spills = [(n, st, ld) for n, _, st, ld in entries if st or ld]
+    log(f"  ptxas: K1 {len(entries)} kernels; f32 registers "
+        + ", ".join(f32) + f"; {len(spills)} spill"
+        + (f": {spills}" if spills else ""))
+
+
 def build_kernels():
     """Start every kernel's nvcc at once, then wait on each."""
     t0 = time.perf_counter()
@@ -1078,6 +1414,9 @@ def build_kernels():
         lib.get()
         log(f"built {lib.source.name} in {lib.build_seconds:.1f} s "
             f"({lib.path.name})")
+        if lib is K.LIBRARY:       # 118 kernels: the f32 ones and spills
+            report_k1_ptxas(lib.build_log)
+            continue
         for line in lib.build_log.splitlines():
             if any(w in line for w in ("registers", "spill",
                                        "Performance Loss")):
@@ -1118,13 +1457,17 @@ def main() -> int:
     t0 = time.perf_counter()
     cases, worst = kernel_sweep()
     nf = nonfinite_sweep()
+    ne = k1_edge_sweep()
     log(f"K1 sweep: {cases} cases vs plain and float64, max |kernel-plain| "
         f"{worst:.3g}; {nf} cases with NaN/Inf/1e20 in valid rows give the "
-        f"plain version's NaN/Inf positions and values; "
+        f"plain version's NaN/Inf positions and values; {ne} cases of "
+        f"blocks longer than a row-list chunk, wholly masked blocks and "
+        f"weights -1/0.5/1/0; every re-launch the same bits; "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     n2, worst2 = k2_sweep(gen)
     n3, worst3 = k3_sweep(gen)
+    state3 = k3_state_sweep(gen)
     log(f"K2 sweep: {n2} cases vs plain, " + ", ".join(
         f"{ran} {dt}: {n} cases, max |kernel-plain| {w:.3g}"
         for (ran, dt), (n, w) in sorted(worst2.items())) + "; "
@@ -1132,7 +1475,23 @@ def main() -> int:
         f"ones), " + ", ".join(
             f"{ran}: {n} cases, max |kernel-plain| {w:.3g}"
             for ran, (n, w) in sorted(worst3.items())) + "; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"K3 from a random initial state vs ssd_chunked_ref from it: "
+        + ", ".join(f"{ran}: {n} cases, max |kernel-plain| / scale "
+                    f"{w:.3g}" for ran, (n, w) in sorted(state3.items()))
+        + f"; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cont = continuity_check(gen)
+    log(f"continuity at zamba2-1.2b's full width on {card}: one Mamba2 "
+        f"layer's ssm_full over {SERVE_B} x {SERVE_PROMPT} tokens vs "
+        f"{SERVE_PROMPT // 2} + {SERVE_PROMPT // 2} from the returned conv "
+        f"and SSM state: " + "; ".join(
+            f"{dt} ({c['variant']}): chained vs one scan over the same "
+            f"steps max err {c['err']:.3g} (scale {c['scale']:.3g}, "
+            f"tolerance {K3_TOL * c['scale']:.3g}); scan inputs vs the "
+            f"whole prompt's {c['input_gap']:.3g}, scan outputs "
+            f"{c['vs_whole']:.3g}, conv state {c['conv_gap']:.3g}"
+            for dt, c in cont.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
 
     table, t_draw, t_upload = build_population(SCALE)
     log(f"population: {table.num_rows} subjects x {VOLUME} float32 = "
@@ -1149,6 +1508,10 @@ def main() -> int:
         f"host->device {m['h2d_bytes'] / 1e9:.2f} GB; "
         f"K1 launches {m['launches']}; fold paths {m['fold_path_counts']}; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    log("K1 launches on the main path by block [R x F], G, sums: " + ", ".join(
+        f"[{R} x {F}] G={G} {'+'.join(n)}: {c}"
+        for (R, F, G, n), c in sorted(m["k1_shapes"].items(),
+                                      key=lambda kv: -kv[1])))
     t_plain = plain_session(table, final)
     log(f"plain-PyTorch fold session, cold query on {card}: {t_plain:.3f} s "
         f"(kernel session {m['cold_s']:.3f} s); results agree")
@@ -1163,13 +1526,24 @@ def main() -> int:
     for evt_name, (us, calls) in top:
         log(f"  device time {us / 1e6:.3f} s in {calls} calls: "
             f"{evt_name[:100]}")
-    b = measure_block(table)
-    log(f"K1 at the largest main-path block [{b['bucket']} x {b['F']}] f32 "
-        f"({b['rows']} rows, {b['selected']} selected), G=2, on {card}: "
-        f"{b['ms']:.3f} ms/block, {b['kernel_hbm_gbps']:.0f} GB/s by "
-        f"kernel_hbm_bytes, {b['need_gbps']:.0f} GB/s of needed bytes; "
-        f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}); plain "
-        f"{b['plain_ms']:.3f} ms; index_add_ {b['library_ms']:.3f} ms")
+    blocks = measure_block(table, m["k1_shapes"])
+    b = blocks["grouped"]
+    for tag, what in (("grouped", "the grouped query's largest img:data "
+                       "block"), ("mean", "the Mean run's block"),
+                      ("age", "the grouped query's idx:age block")):
+        k = blocks[tag]
+        log(f"K1 at {what} [{k['bucket']} x {k['F']}] f32 ({k['rows']} "
+            f"rows, {k['selected']} selected), G={k['G']}, "
+            f"{'+'.join(k['names'])}, {k['calls']} such launches on the "
+            f"main path, on {card}: {k['ms']:.4f} ms/block in a loop of "
+            f"launches, {k['device_ms']:.4f} ms of device time; "
+            f"{k['kernel_hbm_gbps']:.0f} GB/s by kernel_hbm_bytes, "
+            f"{k['need_gbps']:.0f} GB/s of needed bytes; bound "
+            f"{k['bound_ms']:.4g} ms ({k['bound_by']}), "
+            f"{k['bound_ms'] / k['device_ms']:.3g} of the device time; "
+            f"plain {k['plain_ms']:.3f} ms; index_add_ "
+            f"{k['library_ms']:.3f} ms; "
+            f"max |kernel-plain| {k['max_abs_err']:.3g}")
     del table, final
     gc.collect()
     torch.cuda.empty_cache()
@@ -1178,7 +1552,8 @@ def main() -> int:
     sv = serve_path()
     report_serve(sv, card)
 
-    k2m = {tag: measure_k2(gen, *shape) for tag, shape in K2_TIMED.items()}
+    k2m = {tag: measure_k2(gen, *shape, f32=tag == "zamba2")
+           for tag, shape in K2_TIMED.items()}
     k3m = measure_k3(gen)
     for tag, (B, H, Hkv, S, D) in K2_TIMED.items():
         sdpa_turns = ", ".join(f"{t:.4f}" for t in k2m[tag]["turns"]["sdpa"])
@@ -1193,6 +1568,17 @@ def main() -> int:
                 f"MB), SDPA {km['library_ms']:.4f} ms (turns {sdpa_turns}),"
                 f" plain {km['plain_ms']:.3f} ms, max |kernel-plain| "
                 f"{km['max_abs_err']:.3g}")
+    km, turns = k2m["zamba2"]["simt_f32"], k2m["zamba2"]["turns"]
+    B, H, Hkv, S, D = K2_TIMED["zamba2"]
+    log(f"K2 simt at zamba2 q [{B},{H},{S},{D}], k/v [{B},{Hkv},{S},{D}] "
+        f"fp32 causal (the fp32 serving run's dtype) on {card}: "
+        f"{km['ms']:.4f} ms (turns "
+        f"{', '.join(f'{t:.4f}' for t in turns['simt_f32'])}), bound "
+        f"{km['bound_ms']:.4f} ms ({km['bound_by']}, fp32 rate; "
+        f"{km['bytes'] / 1e6:.1f} MB), SDPA fp32 {km['library_ms']:.4f} ms "
+        f"(turns {', '.join(f'{t:.4f}' for t in turns['sdpa_f32'])}), "
+        f"plain fp32 {km['plain_ms']:.3f} ms, max |kernel-plain| "
+        f"{km['max_abs_err']:.3g}")
     for var in ("wgmma", "simt"):
         km = k3m[var]
         turns = ", ".join(f"{t:.4f}" for t in k3m["turns"][var])
@@ -1221,7 +1607,8 @@ def main() -> int:
                     "src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
                     "src/repro/kernels/flash_attention/kernel.py:33",
-                    sv["f32_k2_variants"]["simt"], k2m["zamba2"]["simt"]),
+                    sv["f32_k2_variants"]["simt"],
+                    k2m["zamba2"]["simt_f32"]),
         kernel_line("ssd_scan",
                     "src/repro_torch/kernels/ssm_scan/csrc/"
                     "ssd_scan_wgmma.cu",

@@ -105,9 +105,10 @@ def kernel_flops(rows: int, features: int,
 
 
 def max_groups_for_smem(names: Tuple[str, ...] = ACC_ORDER) -> int:
-    """Largest G the CUDA kernel takes for these names: its per-group
-    accumulators (one fp32 word per power sum per thread of a 32-wide
-    block, plus the count) must fit one block's shared memory on an H100.
-    The engine folds with plain PyTorch above this."""
+    """Largest G the CUDA kernel takes for these names: above 8 groups its
+    per-group accumulators (one fp32 word per power sum per thread of a
+    32-wide block, plus at least one word a group for the row list) must
+    fit one block's shared memory on an H100.  The engine folds with plain
+    PyTorch above this."""
     names = canonical_names(names)
     return max_groups(sum(1 for n in names if n != "count"))

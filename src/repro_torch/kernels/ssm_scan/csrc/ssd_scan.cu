@@ -1,4 +1,5 @@
-// Chunked SSD (mamba2) scan for Hopper (sm_90a), from a zero state.
+// Chunked SSD (mamba2) scan for Hopper (sm_90a), from a given or a zero
+// state.
 //
 // Replaces repro/kernels/ssm_scan/kernel.py::_ssd_kernel (the Pallas TPU
 // kernel).  For every (batch b, head h) stream, with x [B, L, H, P] (dt
@@ -6,8 +7,8 @@
 // shared by all heads (f32, bf16 or f16, read at batch b: never copied out
 // per head), it runs the recurrence
 //
-//   s_t = a_t s_{t-1} + x_t B_t^T      (s in R^{P x N}, s_0 = 0)
-//   y_t = s_t C_t
+//   s_t = a_t s_{t-1} + x_t B_t^T      (s in R^{P x N}; s_{-1} the initial
+//   y_t = s_t C_t                        state, or zero)
 //
 // chunk by chunk, as the reference does.  Per chunk of Q steps, with
 // cum = inclusive cumsum of log(max(a, 1e-20)):
@@ -20,6 +21,7 @@
 // -1e30 before exp, giving an exact 0).  Steps past L are read as a = 1,
 // x = B = C = 0, the reference's identity padding, and are not written.
 // It writes y [B, L, H, P] and the final state [B, H, P, N], both f32.
+// The initial state [B, H, P, N] f32 is read once, or taken as zero.
 //
 // Design.  One CTA of 256 threads per stream walks its chunks in order and
 // keeps the fp32 state S [P, N] in shared memory for the whole sequence, so
@@ -68,7 +70,8 @@ template <typename TB>
 __global__ void __launch_bounds__(NT, 1)
 ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a,
                 const TB* __restrict__ Bm, const TB* __restrict__ Cm,
-                float* __restrict__ y, float* __restrict__ state_out, int L,
+                float* __restrict__ y, float* __restrict__ state_out,
+                const float* __restrict__ init_state, int L,
                 int H, int P, int N, int Q, long long xsb, long long xst,
                 long long xsh, long long asb, long long ast, long long ash,
                 long long bsb, long long bst, long long csb, long long cst,
@@ -92,7 +95,14 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a,
   const TB* cp = Cm + b * csb;
   float* yp = y + b * ysb + h * ysh;
 
-  for (int i = tid; i < PM * BN; i += NT) St[i] = 0.f;
+  // the carried state: the stream's initial state, zero where none is
+  // given and in the padding past P and N
+  const float* si =
+      init_state ? init_state + static_cast<size_t>(bh) * P * N : nullptr;
+  for (int i = tid; i < PM * BN; i += NT) {
+    const int p = i / BN, n = i % BN;
+    St[i] = (si && p < P && n < N) ? si[p * N + n] : 0.f;
+  }
 
   const int n_chunks = (L + Q - 1) / Q;
   for (int ck = 0; ck < n_chunks; ++ck) {
@@ -250,7 +260,8 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a,
 
 template <typename TB>
 cudaError_t launch(const float* x, const float* a, const void* Bm,
-                   const void* Cm, float* y, float* state_out, int Bsz, int L,
+                   const void* Cm, float* y, float* state_out,
+                   const float* init_state, int Bsz, int L,
                    int H, int P, int N, int Q, const long long* st,
                    cudaStream_t stream) {
   const size_t smem = kSmemFloats * sizeof(float);
@@ -260,8 +271,8 @@ cudaError_t launch(const float* x, const float* a, const void* Bm,
   if (err != cudaSuccess) return err;
   ssd_scan_kernel<TB><<<Bsz * H, NT, smem, stream>>>(
       x, a, static_cast<const TB*>(Bm), static_cast<const TB*>(Cm), y,
-      state_out, L, H, P, N, Q, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11], st[12]);
+      state_out, init_state, L, H, P, N, Q, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12]);
   return cudaGetLastError();
 }
 
@@ -271,11 +282,13 @@ cudaError_t launch(const float* x, const float* a, const void* Bm,
 // 13 element strides: x (batch, step, head), a (batch, step, head),
 // B (batch, step), C (batch, step), y (batch, step, head); the innermost
 // strides of x, B, C and y must be 1.  The final state is written
-// contiguous [B*H, P, N].  Requires 1 <= Q <= 128, P <= 64, N <= 64.
+// contiguous [B*H, P, N]; init_state, contiguous [B*H, P, N] f32, is the
+// state before step 0 (null: zero).  Requires 1 <= Q <= 128, P <= 64, N <= 64.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int ssd_scan_launch(const void* x, const void* a, const void* Bm,
                                const void* Cm, int bc_dtype, void* y,
-                               void* state_out, int Bsz, int L, int H, int P,
+                               void* state_out, const void* init_state,
+                               int Bsz, int L, int H, int P,
                                int N, int Q, const long long* strides,
                                void* stream) {
   if (Q < 1 || Q > QM || P < 1 || P > PM || N < 1 || N > NM)
@@ -285,11 +298,12 @@ extern "C" int ssd_scan_launch(const void* x, const void* a, const void* Bm,
   const float* af = static_cast<const float*>(a);
   float* yf = static_cast<float*>(y);
   float* sf = static_cast<float*>(state_out);
+  const float* si = static_cast<const float*>(init_state);
   cudaError_t err;
   switch (bc_dtype) {
-    case 0: err = launch<float>(xf, af, Bm, Cm, yf, sf, Bsz, L, H, P, N, Q, strides, st); break;
-    case 1: err = launch<__nv_bfloat16>(xf, af, Bm, Cm, yf, sf, Bsz, L, H, P, N, Q, strides, st); break;
-    case 2: err = launch<__half>(xf, af, Bm, Cm, yf, sf, Bsz, L, H, P, N, Q, strides, st); break;
+    case 0: err = launch<float>(xf, af, Bm, Cm, yf, sf, si, Bsz, L, H, P, N, Q, strides, st); break;
+    case 1: err = launch<__nv_bfloat16>(xf, af, Bm, Cm, yf, sf, si, Bsz, L, H, P, N, Q, strides, st); break;
+    case 2: err = launch<__half>(xf, af, Bm, Cm, yf, sf, si, Bsz, L, H, P, N, Q, strides, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

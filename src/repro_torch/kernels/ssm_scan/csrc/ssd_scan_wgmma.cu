@@ -1,5 +1,5 @@
 // Chunked SSD (mamba2) scan for Hopper (sm_90a) on bf16 tensor cores, from
-// a zero state: TMA-fed wgmma tiles, one CTA per stream.
+// a given or a zero state: TMA-fed wgmma tiles, one CTA per stream.
 //
 // Replaces repro/kernels/ssm_scan/kernel.py::_ssd_kernel (the Pallas TPU
 // kernel) for bf16 B and C at P = N = 64 and chunks of 128 steps;
@@ -15,7 +15,11 @@
 //
 // Steps past L are read as a = 1 and x = B = C = 0 (TMA fills the rows
 // with zeros) and are not written.  Outputs: y [B, L, H, P] f32 and the
-// final state [B, H, P, N] f32.
+// final state [B, H, P, N] f32.  The state before the first step is the
+// initial state [B, H, P, N] f32 where one is given, else zero: warpgroup
+// 0 loads it into its state accumulator, in the accumulator's fragment
+// layout (the inverse of the final store), so the first chunk's C.S^T sees
+// it through the same hi/lo split as every later chunk.
 //
 // Precision contract.  B and C are bf16, so they enter the tensor cores
 // exactly.  Every fp32 operand (x, the decay matrix M, the carried state S,
@@ -145,6 +149,7 @@ struct Ctx {
   float* y;                 // y at (b, step 0, h)
   long long yst;
   float* state;             // the final state of this stream [P][N]
+  const float* init;        // its initial state [P][N], or null (zero)
   int L, n_chunks;
 };
 
@@ -158,8 +163,10 @@ __device__ __forceinline__ uint32_t bar_empty(uint32_t base, int s) {
   return base + BAR_OFF + 8u * (2 * STAGES + s);
 }
 
-// Consumer warpgroup W: chunk rows [64 W, 64 W + 64).
-template <int W>
+// Consumer warpgroup W: chunk rows [64 W, 64 W + 64).  FROM_STATE: the
+// state before the first chunk is cx.init (else zero); a template
+// argument, so that the scan from zero compiles as it did without it.
+template <int W, bool FROM_STATE>
 __device__ __forceinline__ void consume(const Ctx& cx) {
   constexpr int KS = (W + 1) * 4;       // k-steps of 16 keys in M.x
   constexpr int NCB = (W + 1) * 64;     // keys of C.B^T this group needs
@@ -170,9 +177,26 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
   const int cq = (lane % 4) * 2;        // first column in each 8-group
   const uint32_t base = cx.base;
 
-  float S[32];                          // the state (warpgroup 0)
+  // the state (warpgroup 0): register 4 g + 2 r + c holds row rl + 8 r,
+  // column 8 g + cq + c, as the final store below writes it
+  float S[32];
+  if (W == 0 && FROM_STATE) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) S[i] = 0.f;
+    for (int g = 0; g < 8; ++g) {
+      const int n = g * 8 + cq;
+      const float2 s0 =
+          *reinterpret_cast<const float2*>(cx.init + rl * N + n);
+      const float2 s1 =
+          *reinterpret_cast<const float2*>(cx.init + (rl + 8) * N + n);
+      S[4 * g] = s0.x;
+      S[4 * g + 1] = s0.y;
+      S[4 * g + 2] = s1.x;
+      S[4 * g + 3] = s1.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) S[i] = 0.f;
+  }
 
   for (int ck = 0; ck < cx.n_chunks; ++ck) {
     const int s = ck % STAGES;
@@ -230,7 +254,8 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
       *reinterpret_cast<uint4*>(cx.gbase + DH_OFF + off) = dh;
       *reinterpret_cast<uint4*>(cx.gbase + DL_OFF + off) = dl;
     }
-    if (W == 0 && ck > 0) {   // the state entering this chunk, as S_hi/S_lo
+    // the state entering this chunk, as S_hi/S_lo
+    if (W == 0 && (ck > 0 || FROM_STATE)) {
 #pragma unroll
       for (int g = 0; g < 8; ++g) {
         const int n = g * 8 + cq;
@@ -247,12 +272,13 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
     fence_proxy_async();
     named_bar_sync(1, NC);
 
-    // 2a. y = C.S^T (from the second chunk on), under the decay below;
+    // 2a. y = C.S^T (from the second chunk on, or from the first with an
+    // initial state), under the decay below;
     // y is first live here, which keeps the split above free of spills
     float y[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) y[i] = 0.f;
-    if (ck > 0) {
+    if (ck > 0 || FROM_STATE) {
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -362,12 +388,15 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
   }
 }
 
+template <bool FROM_STATE>
 __global__ void __launch_bounds__(NT, 1)
 ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                  const __grid_constant__ CUtensorMap tm_b,
                  const __grid_constant__ CUtensorMap tm_c,
                  const float* __restrict__ a, float* __restrict__ y,
-                 float* __restrict__ state_out, int L, int H, long long asb,
+                 float* __restrict__ state_out,
+                 const float* __restrict__ init_state, int L, int H,
+                 long long asb,
                  long long ast, long long ash, long long ysb, long long yst,
                  long long ysh) {
   extern __shared__ unsigned char smem_raw[];
@@ -442,10 +471,12 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int n_chunks = (L + Q - 1) / Q;
   Ctx cx{base, gbase, y + b * ysb + h * ysh, yst,
-         state_out + static_cast<long long>(blockIdx.x) * P * N, L,
-         n_chunks};
-  if (threadIdx.x < 128) consume<0>(cx);
-  else consume<1>(cx);
+         state_out + static_cast<long long>(blockIdx.x) * P * N,
+         init_state ? init_state + static_cast<long long>(blockIdx.x) * P * N
+                    : nullptr,
+         L, n_chunks};
+  if (threadIdx.x < 128) consume<0, FROM_STATE>(cx);
+  else consume<1, FROM_STATE>(cx);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -500,11 +531,14 @@ constexpr int ENCODE_ERROR = 1000;   // + CUresult of cuTensorMapEncodeTiled
 // step), C (batch, step), y (batch, step, head); the innermost strides of
 // x, B, C and y are 1.  x, B and C need 16-byte aligned bases and strides
 // of a multiple of 16 bytes (TMA); y 8-byte alignment.  The final state is
-// written contiguous [B*H, P, N].  Returns 0, a CUDA error code, or 1000 +
-// the CUresult of a failed tensor-map encoding.
+// written contiguous [B*H, P, N]; init_state, contiguous [B*H, P, N] f32
+// with 8-byte alignment, is the state before step 0 (null: zero).  Returns
+// 0, a CUDA error code, or 1000 + the CUresult of a failed tensor-map
+// encoding.
 extern "C" int ssd_scan_wgmma_launch(const void* x, const void* a,
                                      const void* Bm, const void* Cm,
                                      int bc_dtype, void* y, void* state_out,
+                                     const void* init_state,
                                      int Bsz, int L, int H, int P_, int N_,
                                      int Q_, const long long* st,
                                      void* stream) {
@@ -513,22 +547,23 @@ extern "C" int ssd_scan_wgmma_launch(const void* x, const void* a,
   // setmaxnreg moves registers between the warpgroups of the CTA's own
   // allocation: the kernel must start with enough of them, or the
   // consumers' setmaxnreg.inc would wait forever.
+  auto* kernel = init_state ? ssd_wgmma_kernel<true> : ssd_wgmma_kernel<false>;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, ssd_wgmma_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (attr.numRegs * NT < 128 * PRODUCER_REGS + NC * CONSUMER_REGS)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   err = cudaFuncSetAttribute(
-      ssd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ALLOC);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ALLOC);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap mx, mb, mc;
   CUresult r = encode_x(&mx, x, L, H, Bsz, st);
   if (r == CUDA_SUCCESS) r = encode_bc(&mb, Bm, L, Bsz, st[6], st[7]);
   if (r == CUDA_SUCCESS) r = encode_bc(&mc, Cm, L, Bsz, st[8], st[9]);
   if (r != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(r);
-  ssd_wgmma_kernel<<<Bsz * H, NT, ALLOC, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<Bsz * H, NT, ALLOC, static_cast<cudaStream_t>(stream)>>>(
       mx, mb, mc, static_cast<const float*>(a), static_cast<float*>(y),
-      static_cast<float*>(state_out), L, H, st[3], st[4], st[5], st[10],
-      st[11], st[12]);
+      static_cast<float*>(state_out), static_cast<const float*>(init_state),
+      L, H, st[3], st[4], st[5], st[10], st[11], st[12]);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,15 +16,16 @@ through ``ctypes``:
 kernels, not a fallback: a failed build or launch raises.  Both read the
 model layout directly: x ``[B, L, H, P]``, a ``[B, L, H]`` and B/C
 ``[B, L, N]`` indexed at each stream's batch, with the caller's strides,
-and both pad the tail chunk themselves.  The plain version is
-``ref.ssd_chunked_ref`` with a zero initial state.
+and both pad the tail chunk themselves.  Both start from a given initial
+state ``[B, H, P, N]`` fp32, or from zero.  The plain version is
+``ref.ssd_chunked_ref`` from the same state.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,7 +44,7 @@ def _binder(name: str):
     def bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, i, p, p]
+        fn.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
     return bind
 
@@ -65,7 +66,8 @@ def variant(bc_dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
     return "simt"
 
 
-def _check(x, a, Bm, Cm, chunk) -> Tuple[int, int, int, int, int, int, int]:
+def _check(x, a, Bm, Cm, chunk, init_state=None
+           ) -> Tuple[int, int, int, int, int, int, int]:
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
     if x.dim() != 4 or a.dim() != 3 or Bm.dim() != 3 or Cm.dim() != 3:
@@ -81,6 +83,13 @@ def _check(x, a, Bm, Cm, chunk) -> Tuple[int, int, int, int, int, int, int]:
             or Cm.shape != (Bsz, L, N)
             or any(t.device != x.device for t in (a, Bm, Cm))):
         raise ValueError("a, B, C shapes or devices do not match x")
+    if init_state is not None and (
+            init_state.dtype != torch.float32
+            or init_state.shape != (Bsz, H, P, N)
+            or init_state.device != x.device):
+        raise ValueError(f"init_state must be float32 [{Bsz}, {H}, {P}, "
+                         f"{N}] on x's device, got {init_state.dtype} "
+                         f"{tuple(init_state.shape)} on {init_state.device}")
     Q = min(int(chunk), L)
     if not (1 <= Q <= MAX_CHUNK and P <= MAX_P and N <= MAX_N):
         raise ValueError(f"chunk {Q}, P {P}, N {N} outside the kernel's "
@@ -88,16 +97,20 @@ def _check(x, a, Bm, Cm, chunk) -> Tuple[int, int, int, int, int, int, int]:
     return code, Bsz, L, H, P, N, Q
 
 
-def _launch(lib: CudaLibrary, name: str, x, a, Bm, Cm, strides, code, Bsz,
-            L, H, P, N, Q) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(lib: CudaLibrary, name: str, x, a, Bm, Cm, init_state, strides,
+            code, Bsz, L, H, P, N, Q) -> Tuple[torch.Tensor, torch.Tensor]:
     y = torch.empty((Bsz, L, H, P), dtype=torch.float32, device=x.device)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    init = None if init_state is None else init_state.contiguous()
+    if init is not None and init.data_ptr() % 8:    # the kernels read pairs
+        init = init.clone()
     st = (ctypes.c_longlong * 13)(*strides, *y.stride()[:3])
     fn = getattr(lib.get(), name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                 code, y.data_ptr(), state.data_ptr(), Bsz, L, H, P, N, Q,
+                 code, y.data_ptr(), state.data_ptr(),
+                 None if init is None else init.data_ptr(), Bsz, L, H, P, N, Q,
                  ctypes.addressof(st), stream)
     if err >= 1000:
         raise RuntimeError(f"ssd_scan {name}: cuTensorMapEncodeTiled failed "
@@ -106,29 +119,29 @@ def _launch(lib: CudaLibrary, name: str, x, a, Bm, Cm, strides, code, Bsz,
     return y, state
 
 
-def ssd_scan_simt(x, a, Bm, Cm, chunk: int
+def ssd_scan_simt(x, a, Bm, Cm, chunk: int, init_state=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/ssd_scan.cu`` (f32, bf16 or f16 B/C; P, N <= 64;
     chunks up to 128).  Bumps ``ssd_scan_cuda.launches`` and its
     ``"simt"`` count."""
-    code, Bsz, L, H, P, N, Q = _check(x, a, Bm, Cm, chunk)
+    code, Bsz, L, H, P, N, Q = _check(x, a, Bm, Cm, chunk, init_state)
     x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous()
                  for t in (x, Bm, Cm))
     strides = (*x.stride()[:3], *a.stride(), *Bm.stride()[:2],
                *Cm.stride()[:2])
-    out = _launch(LIBRARY, "ssd_scan_launch", x, a, Bm, Cm, strides, code,
-                  Bsz, L, H, P, N, Q)
+    out = _launch(LIBRARY, "ssd_scan_launch", x, a, Bm, Cm, init_state,
+                  strides, code, Bsz, L, H, P, N, Q)
     _count("simt")
     return out
 
 
-def ssd_scan_wgmma(x, a, Bm, Cm, chunk: int
+def ssd_scan_wgmma(x, a, Bm, Cm, chunk: int, init_state=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/ssd_scan_wgmma.cu`` (bf16 B/C, P = N = 64, chunks of
     128).  An x, B or C that TMA cannot read as it lies
     (:func:`tma_strides`) is copied first.  Bumps ``ssd_scan_cuda.launches``
     and its ``"wgmma"`` count."""
-    code, Bsz, L, H, P, N, Q = _check(x, a, Bm, Cm, chunk)
+    code, Bsz, L, H, P, N, Q = _check(x, a, Bm, Cm, chunk, init_state)
     if variant(Bm.dtype, P, N, Q) != "wgmma":
         raise ValueError(f"the wgmma kernel takes {WGMMA_BC_DTYPE} B/C at "
                          f"P = N = {WGMMA_P} and chunk {WGMMA_CHUNK}, got "
@@ -138,21 +151,23 @@ def ssd_scan_wgmma(x, a, Bm, Cm, chunk: int
     strides = (*tma_strides(x), *a.stride(), *tma_strides(Bm),
                *tma_strides(Cm))
     out = _launch(WGMMA_LIBRARY, "ssd_scan_wgmma_launch", x, a, Bm, Cm,
-                  strides, code, Bsz, L, H, P, N, Q)
+                  init_state, strides, code, Bsz, L, H, P, N, Q)
     _count("wgmma")
     return out
 
 
 def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
-                  Cm: torch.Tensor, chunk: int
+                  Cm: torch.Tensor, chunk: int,
+                  init_state: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel :func:`variant` picks, on the current stream (no
     synchronisation).
 
     ``x [B, L, H, P]`` and ``a [B, L, H]`` float32, ``Bm, Cm [B, L, N]``
-    (f32, bf16 or f16), on one CUDA device.  Returns
+    (f32, bf16 or f16), on one CUDA device; ``init_state [B, H, P, N]``
+    float32 on that device, or None for zero.  Returns
     ``(y [B, L, H, P], final_state [B, H, P, N])``, fp32 and contiguous,
-    for a zero initial state and chunks of ``min(chunk, L)`` steps.  Raises
+    for chunks of ``min(chunk, L)`` steps.  Raises
     on anything else, and when the build or the launch fails.
     ``ssd_scan_cuda.launches`` counts every launch,
     ``ssd_scan_cuda.by_variant`` each kernel's."""
@@ -160,8 +175,8 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
     Q = min(int(chunk), int(x.shape[1]))
     if variant(Bm.dtype, int(x.shape[-1]), int(Bm.shape[-1]), Q) == "wgmma":
-        return ssd_scan_wgmma(x, a, Bm, Cm, chunk)
-    return ssd_scan_simt(x, a, Bm, Cm, chunk)
+        return ssd_scan_wgmma(x, a, Bm, Cm, chunk, init_state)
+    return ssd_scan_simt(x, a, Bm, Cm, chunk, init_state)
 
 
 def _count(name: str) -> None:

@@ -5,12 +5,10 @@ Port of ``src/repro/models/ssm.py``.  Per head h, with scalar decay:
     s_t = a_t · s_{t-1} + dt_t · B_t ⊗ x_t          s ∈ R^{P×N}
     y_t = C_t · s_t  (+ D ⊙ x_t)
 
-with ``a_t = exp(dt_t · A)``.  Prefill from a zero state runs the chunked
-SSD scan through ``kernels.ssm_scan.ssd_scan``: the CUDA kernel (K3) on a
-CUDA tensor, the plain chunked scan on a CPU tensor.  Prefill from a given
-state has no kernel: on a CPU tensor it runs :func:`ssd_chunked_ref`, on a
-CUDA tensor it raises (no serving entry point passes one).  Decode keeps
-the O(1)-per-token recurrence in plain PyTorch.
+with ``a_t = exp(dt_t · A)``.  Prefill, from a zero or a given state, runs
+the chunked SSD scan through ``kernels.ssm_scan.ssd_scan``: the CUDA kernel
+(K3) on a CUDA tensor, the plain chunked scan on a CPU tensor.  Decode
+keeps the O(1)-per-token recurrence in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -21,7 +19,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan.ops import ssd_scan
-from repro_torch.kernels.ssm_scan.ref import ssd_chunked_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import Init, normal_init
@@ -127,14 +124,8 @@ def ssm_full(
     xh = xs.reshape(*xs.shape[:2], H, s.head_dim)
     xin = xh.to(torch.float32) * dt_v[..., None]
     chunk = min(s.chunk, xs.shape[1])
-    if state is None:
-        y, final = ssd_scan(xin, a, Bm, Cm, chunk)
-    elif x.device.type == "cpu":
-        y, final = ssd_chunked_ref(xin, a, Bm, Cm, chunk, state["ssm"])
-    else:
-        raise NotImplementedError(
-            "ssm_full from a given state has no CUDA kernel: the SSD-scan "
-            "kernel starts from a zero state")
+    y, final = ssd_scan(xin, a, Bm, Cm, chunk,
+                        init_state=None if state is None else state["ssm"])
     out = _mixer_output(cfg, p, y, xh, z, dt_c)
     return out, {"conv": new_conv, "ssm": final.to(torch.float32)}
 

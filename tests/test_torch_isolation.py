@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` and
-everything ``chip_smoke.py`` imports loads neither JAX nor the reference
-package, and a session with no devices refuses to run without CUDA."""
+everything ``chip_smoke.py`` and ``parent_turns.py`` import loads neither
+JAX nor the reference package, and a session with no devices refuses to
+run without CUDA."""
 
 import os
 import subprocess
@@ -19,6 +20,7 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+import parent_turns
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -60,7 +62,7 @@ def test_no_jax_in_port_sources():
     files += list((ROOT / "src" / "repro_torch").rglob("*.cu"))
     files += list((ROOT / "src" / "repro_torch").rglob("*.cuh"))
     assert len(files) > 40
-    for f in files + [ROOT / "chip_smoke.py"]:
+    for f in files + [ROOT / "chip_smoke.py", ROOT / "parent_turns.py"]:
         text = f.read_text()
         for w in words:
             if f.name == "chip_smoke.py" and \

@@ -146,6 +146,44 @@ def test_temperature_sampling_is_seeded():
     assert a.tokens.min() >= 0 and a.tokens.max() < cfg.vocab
 
 
+@pytest.mark.parametrize("L", [24, 7])
+def test_ssm_full_from_a_state_matches_reference(L):
+    """One Mamba2 layer's ``ssm_full`` from a given conv and SSM state (the
+    scan's initial state) equals the reference's on zamba2's smoke config,
+    and a prompt in two parts equals the whole prompt."""
+    from repro.models.ssm import ssm_full as ref_ssm_full
+    from repro_torch.models.ssm import ssm_dims, ssm_full
+    rcfg = ref_zamba.smoke()
+    cfg = port_model_config(rcfg)
+    rparams = ref_build(rcfg).init(jax.random.key(0))
+    params = lm_params_from_jax(cfg, jax.tree.map(np.asarray, rparams))
+    rp = {k: np.asarray(v[0]) for k, v in rparams["runs"][0]["ssm"].items()}
+    p = {k: v[0] for k, v in params["runs"][0]["ssm"].items()}
+    d_inner, H, N = ssm_dims(cfg)
+    r = np.random.default_rng(L)
+    x = r.normal(size=(B, L, cfg.d_model)).astype(np.float32)
+    state = {"conv": r.normal(size=(B, cfg.ssm.conv_width - 1,
+                                    d_inner + 2 * N)).astype(np.float32),
+             "ssm": r.normal(size=(B, H, cfg.ssm.head_dim, N)).astype(
+                 np.float32)}
+    want, want_state = ref_ssm_full(
+        rcfg, {k: jnp.asarray(v) for k, v in rp.items()}, jnp.asarray(x),
+        {k: jnp.asarray(v) for k, v in state.items()})
+    got, got_state = ssm_full(cfg, p, torch.from_numpy(x),
+                              {k: torch.from_numpy(v)
+                               for k, v in state.items()})
+    close(got, want, PREFILL_TOL, "output")
+    for k in ("conv", "ssm"):
+        close(got_state[k], want_state[k], PREFILL_TOL, k)
+    half = L // 2
+    first, mid = ssm_full(cfg, p, torch.from_numpy(x[:, :half]),
+                          {k: torch.from_numpy(v) for k, v in state.items()})
+    second, end = ssm_full(cfg, p, torch.from_numpy(x[:, half:]), mid)
+    close(torch.cat([first, second], 1), got, PREFILL_TOL, "two parts")
+    for k in ("conv", "ssm"):
+        close(end[k], got_state[k], PREFILL_TOL, f"two parts {k}")
+
+
 def test_param_count_of_full_config_matches_reference():
     assert zamba2_1p2b.full().param_count() == \
         count_params_from_shapes(ref_zamba.full())

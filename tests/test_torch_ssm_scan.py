@@ -3,9 +3,9 @@ reference's ``ssd_scan`` (the Pallas kernel in interpret mode, and its
 ``impl="ref"`` sequential recurrence) and ``ssd_chunked_ref``, on the cases
 of ``tests/test_kernels.py``.
 
-On the CPU the op runs the kernels' plain version (the chunked scan from a
-zero state); the two CUDA kernels are held to it on the card by
-``chip_smoke.py``.  Here: which kernel a call takes, what TMA can read as
+On the CPU the op runs the kernels' plain version (the chunked scan from the
+given state, or from zero); the two CUDA kernels are held to it on the card
+by ``chip_smoke.py``.  Here: which kernel a call takes, what TMA can read as
 it lies, and a plain emulation of the wgmma kernel's split-precision
 arithmetic held to the reference.  Tolerance: the reference suite's 1e-4.
 """
@@ -92,6 +92,38 @@ def test_chunked_ref_from_a_state_matches_reference():
     np.testing.assert_allclose(s.numpy(), np.asarray(sr), rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [
+    (1, 40, 2, 16, 8, 16),
+    (2, 100, 3, 32, 16, 32),     # padding path
+    (1, 256, 2, 64, 64, 128),    # the wgmma kernel's dims
+])
+def test_scan_from_a_state_matches_reference(B, L, H, P, N, chunk):
+    """``ssd_scan(..., init_state=...)`` on the CPU (the CUDA kernels'
+    plain version) equals the reference's ``ssd_chunked_ref`` from the same
+    state."""
+    arrays = inputs(B, L, H, P, N, seed=L + H)
+    s0 = np.random.default_rng(L).normal(size=(B, H, P, N)).astype(
+        np.float32)
+    y, s = ssd_scan(*(torch.from_numpy(t) for t in arrays), chunk=chunk,
+                    init_state=torch.from_numpy(s0))
+    yr, sr = ref_chunked(*(jnp.asarray(t) for t in arrays), min(chunk, L),
+                         jnp.asarray(s0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(yr), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sr), rtol=1e-5,
+                               atol=1e-5)
+    # a prompt in two parts, the second from the first's state, is the
+    # whole prompt
+    half = L // 2
+    y1, s1 = ssd_scan(*(torch.from_numpy(t[:, :half]) for t in arrays),
+                      chunk=chunk, init_state=torch.from_numpy(s0))
+    y2, s2 = ssd_scan(*(torch.from_numpy(t[:, half:]) for t in arrays),
+                      chunk=chunk, init_state=s1)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(), y.numpy(),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(s2.numpy(), s.numpy(), rtol=TOL, atol=TOL)
+
+
 def test_chunk_invariance():
     arrays = inputs(1, 128, 2, 16, 16, seed=11, lo=0.8)
     outs = [port(arrays, c)[0] for c in (16, 32, 64, 128)]
@@ -120,6 +152,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x, a, Bm, Cm = (torch.from_numpy(t) for t in inputs(1, 8, 1, 4, 4, 0))
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan_cuda(x, a, Bm, Cm, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_cuda(x, a, Bm, Cm, 4, init_state=torch.zeros(1, 1, 4, 4))
 
 
 # ---- which CUDA kernel a call takes, and what TMA can read as it lies ----
@@ -233,11 +267,13 @@ def _product(eq, u, v, u_exact, v_exact):
             + torch.einsum(eq, ul, vh))
 
 
-def split_precision_scan(x, a, Bm, Cm, chunk, bc_exact):
-    """The chunked scan from a zero state with every product under the
-    split contract (``ssd_scan_wgmma.cu``'s arithmetic): ``x [B, L, H, P]``,
-    ``a [B, L, H]``, ``Bm, Cm [B, L, N]`` fp32 tensors; ``bc_exact`` says
-    that B and C hold bf16 values.  -> ``(y, final_state)``, fp32."""
+def split_precision_scan(x, a, Bm, Cm, chunk, bc_exact, init_state=None):
+    """The chunked scan with every product under the split contract
+    (``ssd_scan_wgmma.cu``'s arithmetic): ``x [B, L, H, P]``, ``a [B, L,
+    H]``, ``Bm, Cm [B, L, N]`` fp32 tensors; ``bc_exact`` says that B and C
+    hold bf16 values; ``init_state [B, H, P, N]`` (None: zero) enters the
+    first chunk's C.S^T through the same split as every later state.
+    -> ``(y, final_state)``, fp32."""
     Bsz, L, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, L)
@@ -259,7 +295,8 @@ def split_precision_scan(x, a, Bm, Cm, chunk, bc_exact):
                                                          None]
     M = torch.where(low, cb[..., None] * torch.exp(
         torch.where(low, seg, torch.zeros(()))), torch.zeros(()))
-    S = torch.zeros(Bsz, H, P, N)
+    S = (torch.zeros(Bsz, H, P, N) if init_state is None
+         else init_state.clone())
     ys = []
     for c in range(nc):
         y = (_product("bin,bhpn->bihp", Cc[:, c], S, bc_exact, False)
@@ -314,6 +351,30 @@ def test_split_precision_contract_meets_the_reference(B, L, H, P, N, chunk,
                                    atol=TOL)
         np.testing.assert_allclose(s.numpy(), np.asarray(sr), rtol=TOL,
                                    atol=TOL)
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk,bc_bf16", [
+    (1, 128, 4, 64, 64, 128, False),
+    (2, 512, 2, 64, 64, 128, True),
+    (1, 300, 2, 64, 64, 128, True),     # ragged tail chunk
+])
+def test_split_precision_contract_from_a_state(B, L, H, P, N, chunk,
+                                              bc_bf16):
+    """The split scheme from a random initial state (the wgmma kernel's
+    state accumulator loaded from it) agrees with the reference's
+    ``ssd_chunked_ref`` from that state within 1e-4."""
+    arrays = inputs(B, L, H, P, N, seed=L + 2 * H)
+    if bc_bf16:
+        arrays = arrays[:2] + tuple(_as_bf16_values(t).view(np.float32)
+                                    for t in arrays[2:])
+    s0 = np.random.default_rng(L + 1).normal(size=(B, H, P, N)).astype(
+        np.float32)
+    y, s = split_precision_scan(*(torch.from_numpy(t) for t in arrays),
+                                chunk, bc_bf16, torch.from_numpy(s0))
+    yr, sr = ref_chunked(*(jnp.asarray(t) for t in arrays), min(chunk, L),
+                         jnp.asarray(s0))
+    np.testing.assert_allclose(y.numpy(), np.asarray(yr), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sr), rtol=TOL, atol=TOL)
 
 
 def test_the_emulation_splits_and_does_not_round_once():
