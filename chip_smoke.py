@@ -34,9 +34,20 @@
    repeat, an upload, a remove, a rebalance and
    ``run(MeanProgram(), impl="kernel")`` — and checks it against a float64
    oracle on a voxel subset and against a second session that folds with
-   plain PyTorch.  Counts K1's launches by block, then times K1 at three
-   of its blocks: the grouped query's largest ``img:data`` block, the
-   Mean run's block and the ``idx:age`` block.
+   plain PyTorch.  Counts K1's launches by block.  On the same session,
+   its blocks still resident: (g) four sketch queries over ``img:data``
+   aged 20-60 by sex (count-min, HyperLogLog, the quantile sketch dense
+   and count-min), each with its wall, rows, fold paths (no K1) and memory
+   above the blocks, their exact invariants, one region's block folded
+   through all four on the card and the CPU with every int32 leaf equal,
+   and ``fmix32`` equal on both; (h) ``GridFrontend(workers=8,
+   tick_ms=2.0)``: eight clients coalescing onto one execution whose K1
+   launches and bits equal a direct re-fold, three plans fused in one
+   tick (one K1 launch a block), an upload under eight queries (each
+   answer one epoch's direct result) and 64 mixed submissions for
+   queries/s and p50/p99.  Then times K1 at three of its blocks: the
+   grouped query's largest ``img:data`` block, the Mean run's block and
+   the ``idx:age`` block.
 6. Serves zamba2-1.2b at full width and depth (38 layers, random weights
    from a seed) through ``ServeEngine(device="cuda")``: 8 requests, 2048
    prompt tokens, 64 new tokens, greedy; counts K2/K3 launches per prefill
@@ -65,6 +76,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -74,11 +86,21 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import grid as grid_mod  # noqa: E402
+from repro_torch.core import stats as stats_mod  # noqa: E402
 from repro_torch.core.balancer import NodeSpec  # noqa: E402
+from repro_torch.core.frontend import GridFrontend  # noqa: E402
 from repro_torch.core.grid import GridSession  # noqa: E402
 from repro_torch.core.mapreduce import MapReduceEngine  # noqa: E402
 from repro_torch.core.query import age_sex_predicate  # noqa: E402
-from repro_torch.core.stats import MeanProgram, MomentsProgram  # noqa: E402
+from repro_torch.core.stats import (  # noqa: E402
+    CountMinProgram,
+    CountProgram,
+    HyperLogLogProgram,
+    MeanProgram,
+    MomentsProgram,
+    QuantileSketchProgram,
+    VarianceProgram,
+)
 from repro_torch.core.table import TensorTable  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
     image_population_table,
@@ -111,6 +133,7 @@ from repro_torch.models.model import (  # noqa: E402
 )
 from repro_torch.models.params import Init  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.utils import tree_leaves  # noqa: E402
 
 VOLUME = (91, 109, 91)          # MNI152 2 mm grid
 SCALE = 1.0                     # 4,490 subjects (the paper's Table 3)
@@ -678,13 +701,14 @@ def k1_shapes():
 
 
 def main_path(table):
-    """Phases (a)-(f); returns the report lines and the measurements."""
+    """Phases (a)-(f); returns the final grouped result, the measurements
+    and the session, still open with its blocks resident."""
     with k1_shapes() as shapes:
-        final, out = _main_path(table)
+        final, out, s = _main_path(table)
     out["k1_shapes"] = shapes
     check(sum(shapes.values()) == out["launches"],
           f"K1 launches {out['launches']} != folds by shape {shapes}")
-    return final, out
+    return final, out, s
 
 
 def _main_path(table):
@@ -749,11 +773,14 @@ def _main_path(table):
     out["moved"] = len(moved)
     out["refold_upload"] = refold
     out["refold_remove"] = refold4
+    del res, res2, res5, mres
+    return final, out, s
+
+
+def close_session(s):
     s.close()
-    del s, res, res2, res5, mres
     gc.collect()
     torch.cuda.empty_cache()
-    return final, out
 
 
 def plain_session(table, final):
@@ -833,6 +860,379 @@ def traced_cold(table):
     torch.cuda.empty_cache()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return wall, spans, device_us, top
+
+
+# ----------------------------------------------------------------------
+# phases (g) and (h): sketches and the frontend on the main path's session
+# ----------------------------------------------------------------------
+
+SKETCH_PROGRAMS = (
+    ("count-min", CountMinProgram(depth=4, width=1024)),
+    ("HyperLogLog", HyperLogLogProgram(p=12)),
+    # U = 4096 <= depth x width: exact bucket counts
+    ("quantile dense", QuantileSketchProgram(lo=-6.0, hi=7.0)),
+    ("quantile count-min", QuantileSketchProgram(
+        lo=-6.0, hi=7.0, log2_universe=16, depth=4, width=2048)),
+)
+WAIT_S = 600.0         # the bound on every wait of the frontend phase
+
+
+def aged(q):
+    return q.where(age_sex_predicate(20.0, 60.0), ["age"])
+
+
+def sketch_invariants(table, program, res):
+    """What a sketch over the selected voxels must hold exactly: ``n`` is
+    each group's voxel count, every count-min lane sums to it, registers
+    and quantiles lie in range."""
+    age = table.column("idx", "age")
+    sex = table.column("idx", "sex")
+    sel = (age >= 20.0) & (age < 60.0)
+    F = int(np.prod(VOLUME))
+    check(list(res.keys) == [0, 1], "sketch group keys")
+    v = res.values
+    for gi, key in enumerate(res.keys):
+        n = int((sel & (sex == key)).sum()) * F
+        if isinstance(program, HyperLogLogProgram):
+            regs = v["registers"][gi]
+            check(int(regs.min()) >= 0
+                  and int(regs.max()) <= 33 - program.p, "HLL registers")
+            est = float(v["estimate"][gi])
+            check(np.isfinite(est)
+                  and 0 < est <= n * (1 + 4 * program.std_error()),
+                  f"HLL estimate {est} for {n} items")
+            continue
+        check(int(v["n"][gi]) == n, f"sketch n {int(v['n'][gi])} != {n}")
+        cm = v["cm"][gi].long()           # [U] dense, else [..., width]
+        lanes = cm.sum(-1).reshape(-1)
+        check(bool((lanes == n).all()), "a count-min lane lost items")
+        if isinstance(program, QuantileSketchProgram):
+            q = v["quantiles"][gi]
+            check(bool(((q >= program.lo) & (q <= program.hi)).all()),
+                  f"quantiles {q} out of range")
+
+
+def fmix_card_vs_cpu(dev):
+    """``_fmix32`` on the card and the CPU (and NumPy's uint32) at the
+    edges and 10^6 random values."""
+    rng = np.random.default_rng(5)
+    h = np.concatenate([
+        np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32),
+        rng.integers(0, 2**32, 10**6, dtype=np.uint64).astype(np.uint32)])
+    t = torch.from_numpy(h.astype(np.int64))
+    cpu = stats_mod._fmix32(t)
+    card = stats_mod._fmix32(t.to(dev)).cpu()
+    check(torch.equal(card, cpu), "fmix32 differs between card and CPU")
+    check(np.array_equal(cpu.numpy(), stats_mod._host_fmix32(h)),
+          "fmix32 differs from uint32 arithmetic")
+    return len(h)
+
+
+def sketch_card_vs_cpu(table, dev):
+    """One region's block at full width, age-masked, through every sketch
+    program on the card and on the CPU: every int32 leaf the same bits."""
+    region = next(iter(table.regions))
+    sl = table.region_rows(region)
+    block = np.array(table.column("img", "data")[sl])
+    age = table.column("idx", "age")[sl]
+    mask = (age >= 20.0) & (age < 60.0)
+    where = {"card": dev, "cpu": torch.device("cpu")}
+    engines = {k: MapReduceEngine(devices=[d], block_pad="none")
+               for k, d in where.items()}
+    secs = {k: 0.0 for k in where}
+    leaves = 0
+    for _, program in SKETCH_PROGRAMS:
+        parts = {}
+        for k, eng in engines.items():
+            x = torch.from_numpy(block).to(where[k])
+            p, t = timed(lambda: eng.fold_block(
+                program, x, mask, 16, VOLUME, np.float32))
+            secs[k] += t
+            parts[k] = tree_leaves(p)
+        for a, b in zip(parts["card"], parts["cpu"]):
+            check(a.dtype == torch.int32 and torch.equal(a.cpu(), b),
+                  f"{type(program).__name__}: card and CPU partials differ")
+            leaves += 1
+    return {"rows": block.shape[0], "items": block.size, "leaves": leaves,
+            "card_s": secs["card"], "cpu_s": secs["cpu"],
+            "rid": region.rid}
+
+
+def sketch_phase(s, table):
+    """Phase (g): the four sketch queries on the card over the resident
+    blocks, each with its wall, rows, fold paths and memory above the
+    blocks; then card against CPU bit for bit."""
+    out = {}
+    K.fused_fold_cuda.launches = 0
+    for name, program in SKETCH_PROGRAMS:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        paths0 = dict(s.engine.fold_path_counts)
+        (res, rep), wall = timed(lambda: aged(
+            s.scan().select("img:data")).group_by("idx:sex")
+            .map(program).reduce().collect())
+        paths = {k: v - paths0[k] for k, v in s.engine.fold_path_counts.items()}
+        check(paths["kernel"] == 0 and paths["torch"] > 0,
+              f"sketch fold paths {paths}")
+        sketch_invariants(table, program, res)
+        out[name] = {"wall": wall, "rows": rep.query.rows_folded,
+                     "paths": paths, "n": [int(x) for x in
+                                           res.values.get("n", [])],
+                     "peak": torch.cuda.max_memory_allocated() - base,
+                     "res": res}
+    launches = K.fused_fold_cuda.launches
+    check(launches == 0, f"sketch queries launched K1 {launches} times")
+    qd = out["quantile dense"]["res"].values["quantiles"]
+    qc = out["quantile count-min"]["res"].values["quantiles"]
+    out["median_gap"] = float((qd - qc).abs().max())
+    check(out["median_gap"] < 0.1, "dense and count-min medians disagree")
+    for v in out.values():
+        if isinstance(v, dict):
+            v.pop("res")
+    out["fmix_values"] = fmix_card_vs_cpu(s.devices[0])
+    out["card_vs_cpu"] = sketch_card_vs_cpu(table, s.devices[0])
+    return out
+
+
+def fanout(n, fn):
+    """``fn(i)`` on ``n`` client threads released by one barrier."""
+    barrier = threading.Barrier(n, timeout=WAIT_S)
+    errors = []
+
+    def run(i):
+        try:
+            barrier.wait()
+            fn(i)
+        except BaseException as e:  # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=WAIT_S)
+        check(not t.is_alive(), "a frontend client hung")
+    if errors:
+        raise errors[0]
+
+
+def result_leaves(x):
+    if hasattr(x, "keys") and hasattr(x, "values") and not isinstance(x, dict):
+        return [torch.as_tensor(np.asarray(x.keys))] + result_leaves(x.values)
+    if isinstance(x, dict):
+        return [v for k in sorted(x) for v in result_leaves(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [v for item in x for v in result_leaves(item)]
+    return [x]
+
+
+def same_bits(a, b):
+    la, lb = result_leaves(a), result_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(la, lb))
+
+
+def max_gap(a, b):
+    gap = 0.0
+    for x, y in zip(result_leaves(a), result_leaves(b)):
+        x, y = x.double().cpu(), y.double().cpu()
+        check(torch.allclose(x, y, rtol=1e-4, atol=1e-3),
+              "frontend result differs from its direct run")
+        gap = max(gap, float((x - y).abs().max()))
+    return gap
+
+
+def fe_single_flight(s, fe):
+    """Eight clients, one cold grouped Variance plan: one execution."""
+    plan = aged(s.scan().select(["img:data"])).group_by(
+        "idx:sex").map(VarianceProgram()).reduce()
+    futs = [None] * 8
+    hits0, scans0 = fe.stats.coalesce_hits, s.metrics.scans
+    l0 = K.fused_fold_cuda.launches
+    fanout(8, lambda i: futs.__setitem__(i, fe.submit(plan)))
+    res = [f.result(timeout=WAIT_S)[0] for f in futs]
+    launches = K.fused_fold_cuda.launches - l0
+    out = {"hits": fe.stats.coalesce_hits - hits0,
+           "executions": s.metrics.scans - scans0, "launches": launches}
+    check(out["hits"] == 7 and out["executions"] == 1,
+          f"single flight: {out}")
+    check(all(same_bits(r, res[0]) for r in res), "clients got other bits")
+    # a direct re-fold: drop the cached partials and finalized results
+    s.blocks.clear_partials()
+    s._results.clear()
+    l1 = K.fused_fold_cuda.launches
+    direct, _ = plan.collect()
+    out["direct_launches"] = K.fused_fold_cuda.launches - l1
+    check(launches > 0 and launches == out["direct_launches"],
+          f"K1 launches: frontend {launches}, direct "
+          f"{out['direct_launches']}")
+    check(same_bits(direct, res[0]), "frontend bits differ from a re-fold")
+    return out
+
+
+def key_prefixes(s, n):
+    """The first ``n`` thousand-row key prefixes (``sub001`` holds
+    ``sub001000``-``sub001999``: seven or eight regions)."""
+    return sorted({bytes(k)[:6].decode() for k in s.table.keys})[:n]
+
+
+def fe_batched_tick(s, fe):
+    """Mean, Variance and Moments over one cold key range, submitted
+    together: one fused pass, one K1 launch per block."""
+    programs = (MeanProgram, VarianceProgram, MomentsProgram)
+    for prefix in key_prefixes(s, 3):
+        plan = lambda P, p=prefix: s.scan(prefix=p).select(  # noqa: E731
+            ["img:data"]).map(P()).reduce()
+        merges0 = fe.stats.batch_merges
+        l0 = K.fused_fold_cuda.launches
+        futs = [None] * 3
+        fanout(3, lambda i: futs.__setitem__(i, fe.submit(
+            plan(programs[i]))))
+        got = [f.result(timeout=WAIT_S) for f in futs]
+        if fe.stats.batch_merges > merges0:
+            break
+    rep = got[0][1].query
+    out = {"merges": fe.stats.batch_merges - merges0, "prefix": prefix,
+           "launches": K.fused_fold_cuda.launches - l0,
+           "blocks": rep.partials_total - rep.partials_reused,
+           "regions": rep.regions_scanned}
+    check(out["merges"] >= 1, "no batched tick merged the three plans")
+    check(out["launches"] == out["blocks"] > 0,
+          f"batched tick: {out['launches']} K1 launches for "
+          f"{out['blocks']} blocks")
+    out["gap"] = max(max_gap(g[0], plan(P).collect()[0])
+                     for g, P in zip(got, programs))
+    return out
+
+
+def fe_mutation(s, fe):
+    """Eight mixed queries in flight while three rows upload (once the
+    first has answered): each answer is the pre-upload or the
+    post-upload direct result, bit for bit."""
+    variants = [
+        lambda: aged(s.scan().select(["img:data"])).group_by(
+            "idx:sex").map(MeanProgram()).reduce(),
+        lambda: aged(s.scan().select(["img:data"])).group_by(
+            "idx:sex").map(VarianceProgram()).reduce(),
+        lambda: aged(s.scan().select(["img:data"])).map(
+            MomentsProgram()).reduce(),
+        lambda: aged(s.scan().select(["img:data"])).group_by(
+            "idx:sex").map(CountProgram()).reduce()]
+    pre = [v().collect()[0] for v in variants]
+    rng = np.random.default_rng(2)
+    keys = [f"sub{i:06d}y" for i in (777, 1777, 2777)]
+    rows = {"img": {"data": rng.standard_normal((3,) + VOLUME,
+                                                dtype=np.float32)},
+            "idx": {"size": np.full(3, 10_000_000),
+                    "age": np.array([25.0, 35.0, 45.0], np.float32),
+                    "sex": np.array([0, 1, 1], np.int8)}}
+    futs = [None] * 8
+    muts0 = fe.stats.mutations
+    answered = threading.Event()
+
+    def client(i):
+        if i == 8:         # upload once one query has answered
+            check(answered.wait(WAIT_S), "no query answered")
+            fe.upload(keys, rows)
+        else:
+            futs[i] = fe.submit(variants[i % 4]())
+            futs[i].add_done_callback(lambda _: answered.set())
+
+    fanout(9, client)
+    got = [f.result(timeout=WAIT_S)[0] for f in futs]
+    post = [v().collect()[0] for v in variants]
+    check(fe.stats.mutations == muts0 + 1, "upload not applied")
+    check(not same_bits(pre[3], post[3]), "upload changed no count")
+    seen = {"pre": 0, "post": 0}
+    for i, g in enumerate(got):
+        if same_bits(g, pre[i % 4]):
+            seen["pre"] += 1
+        elif same_bits(g, post[i % 4]):
+            seen["post"] += 1
+        else:
+            check(False, f"query {i} saw neither epoch's result")
+    for k in keys:           # leave the table as the later phases expect
+        check(fe.remove(rowkey=k) == 1, "cleanup remove")
+    return seen
+
+
+def fe_load(s, fe):
+    """64 mixed submissions from 8 clients: queries/s and latency."""
+    plans = [aged(s.scan(prefix=p).select(["img:data"])).group_by(
+        "idx:sex").map(P()).reduce()
+        for p in key_prefixes(s, 4)
+        for P in (MeanProgram, VarianceProgram, CountProgram)]
+    fe.stats.reset_latencies()
+    served0 = fe.stats.served
+    futs = [None] * 64
+
+    def client(i):
+        for j in range(8):
+            k = i * 8 + j
+            futs[k] = fe.submit(plans[(k * 5) % len(plans)])
+
+    t0 = time.perf_counter()
+    fanout(8, client)
+    for f in futs:
+        f.result(timeout=WAIT_S)
+    wall = time.perf_counter() - t0
+    p50, p99 = fe.stats.latency_percentiles()
+    check(fe.stats.served - served0 == 64, "load: not every query served")
+    return {"wall": wall, "qps": 64 / wall, "p50": p50, "p99": p99,
+            "distinct": len(plans)}
+
+
+def frontend_phase(s):
+    """Phase (h): ``GridFrontend(s, workers=8, tick_ms=2.0)`` over the
+    main path's session; K1's count is read over the whole phase."""
+    K.fused_fold_cuda.launches = 0
+    with GridFrontend(s, workers=8, tick_ms=2.0) as fe:
+        out = {"single": fe_single_flight(s, fe),
+               "batched": fe_batched_tick(s, fe),
+               "mutation": fe_mutation(s, fe),
+               "load": fe_load(s, fe)}
+        out["stats"] = fe.stats.snapshot()
+    out["launches"] = K.fused_fold_cuda.launches
+    check(out["launches"] > 0, "the frontend path never launched K1")
+    return out
+
+
+def report_phases(sk, fe, card):
+    for name, _ in SKETCH_PROGRAMS:
+        r = sk[name]
+        log(f"sketch {name} over img:data, age 20-60, by sex, on {card}: "
+            f"{r['wall']:.3f} s, {r['rows']} rows folded, fold paths "
+            f"{r['paths']}, n by group {r['n']}, peak device memory above "
+            f"the resident blocks {r['peak'] / 1e9:.3f} GB")
+    c = sk["card_vs_cpu"]
+    log(f"sketches card vs CPU at region {c['rid']} [{c['rows']} x "
+        f"{int(np.prod(VOLUME))}] ({c['items'] / 1e6:.0f} M items, ages "
+        f"20-60): {c['leaves']} int32 leaves equal bit for bit over the "
+        f"four programs (card {c['card_s']:.2f} s, CPU {c['cpu_s']:.2f} s); "
+        f"fmix32 equal on the card and the CPU at {sk['fmix_values']} "
+        f"values; dense vs count-min median gap {sk['median_gap']:.4f}; "
+        f"K1 launches during the sketch queries 0")
+    a, b, m, ld = fe["single"], fe["batched"], fe["mutation"], fe["load"]
+    st = fe["stats"]
+    log(f"frontend on {card}: single flight, 8 clients: coalesce_hits "
+        f"{a['hits']}, executions {a['executions']}, K1 launches "
+        f"{a['launches']} (direct run {a['direct_launches']}), 8 results "
+        f"the same bits as a direct re-fold; batched tick over prefix "
+        f"{b['prefix']} ({b['regions']} regions): batch_merges "
+        f"{b['merges']}, K1 launches {b['launches']} for {b['blocks']} "
+        f"blocks, max gap to the direct runs {b['gap']:.3g}; upload under "
+        f"8 queries: {m['pre']} pre-upload and {m['post']} post-upload "
+        f"answers, each bit-equal to a direct run; K1 launches over the "
+        f"phase {fe['launches']}")
+    log(f"frontend load on {card}: 64 mixed submissions ({ld['distinct']} "
+        f"distinct plans) from 8 clients in {ld['wall']:.3f} s = "
+        f"{ld['qps']:.1f} queries/s, latency p50 {ld['p50'] * 1e3:.2f} ms, "
+        f"p99 {ld['p99'] * 1e3:.2f} ms; stats submitted {st.submitted}, "
+        f"served {st.served}, coalesce_hits {st.coalesce_hits}, "
+        f"batch_merges {st.batch_merges}, partial_coalesce_hits "
+        f"{st.partial_coalesce_hits}, ticks {st.ticks}")
 
 
 # ----------------------------------------------------------------------
@@ -1498,7 +1898,7 @@ def main() -> int:
         f"{table.column('img', 'data').nbytes / 1e9:.2f} GB; drawn in "
         f"{t_draw:.1f} s, uploaded in {t_upload:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    final, m = main_path(table)
+    final, m, s = main_path(table)
     log(f"population path on {card}: cold {m['cold_s']:.3f} s, warm "
         f"{m['warm_s']:.4f} s, dirty upload {m['dirty_upload_s']:.3f} s "
         f"({m['refold_upload']} partials re-folded), dirty remove "
@@ -1512,6 +1912,16 @@ def main() -> int:
         f"[{R} x {F}] G={G} {'+'.join(n)}: {c}"
         for (R, F, G, n), c in sorted(m["k1_shapes"].items(),
                                       key=lambda kv: -kv[1])))
+    t0 = time.perf_counter()
+    sk = sketch_phase(s, table)
+    t_sk = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fe = frontend_phase(s)
+    report_phases(sk, fe, card)
+    log(f"phase (g) sketches {t_sk:.1f} s, phase (h) frontend "
+        f"{time.perf_counter() - t0:.1f} s")
+    close_session(s)
+    del s
     t_plain = plain_session(table, final)
     log(f"plain-PyTorch fold session, cold query on {card}: {t_plain:.3f} s "
         f"(kernel session {m['cold_s']:.3f} s); results agree")

@@ -1,7 +1,7 @@
 """ColoGrid core — the paper's contribution as a composable PyTorch library.
 
-Port of ``src/repro/core``.  The sketch programs, the frontend and the
-simulator are not ported yet.
+Port of ``src/repro/core``: every module, the sketch programs, the
+concurrent frontend and the discrete-event simulator included.
 
 The subpackage mirrors HadoopBase-MIP's backend (Bao et al., 2017):
 
@@ -14,16 +14,21 @@ The subpackage mirrors HadoopBase-MIP's backend (Bao et al., 2017):
 - :mod:`repro_torch.core.mapreduce`   — MapReduce engine over the owner devices.
 - :mod:`repro_torch.core.chunk_model` — the paper's eq. (1)-(8) wall/resource-time
   model and the chunk-size (eta) optimizer.
-- :mod:`repro_torch.core.stats`       — summary-statistic MapReduce programs.
+- :mod:`repro_torch.core.stats`       — summary-statistic MapReduce programs
+  and the mergeable sketches (count-min, HyperLogLog, dyadic quantiles).
 - :mod:`repro_torch.core.query`       — index-family predicate pushdown vs naive scan.
 - :mod:`repro_torch.core.plan`        — :class:`GridQuery`, lazy scan→filter→map→
   reduce job plans with region pruning, projection pushdown, program fusion.
 - :mod:`repro_torch.core.scheduler`   — grid scheduler: rounds, stragglers, failures.
+- :mod:`repro_torch.core.simulator`   — discrete-event cluster simulator (the
+  paper's Hadoop vs SGE orderings).
 - :mod:`repro_torch.core.blockstore`  — :class:`BlockStore`, content-addressed
   copy-on-write per-region device blocks shared across epochs and plans.
 - :mod:`repro_torch.core.grid`        — :class:`GridSession`, the five-verb facade
   (upload / retrieve / remove / rebalance / run) with mutation epochs,
   incremental placement, and a compiled-plan cache.
+- :mod:`repro_torch.core.frontend`    — :class:`GridFrontend`, concurrent query
+  serving with single-flight coalescing and batched ticks.
 """
 
 from repro_torch.core.table import TensorTable, ColumnFamily, ColumnSpec
@@ -61,14 +66,25 @@ from repro_torch.core.stats import (
     FusedProgram,
     GroupedProgram,
     GroupedResult,
+    CountMinProgram,
+    HyperLogLogProgram,
+    QuantileSketchProgram,
 )
 from repro_torch.core.query import indexed_query, naive_query, QueryStats
 from repro_torch.core.plan import GridQuery, prefix_range
 from repro_torch.core.blockstore import BlockStore, DeviceBlock, LRUCache
 from repro_torch.core.grid import GridSession, RunReport, SessionMetrics
+from repro_torch.core.frontend import (
+    FrontendOverloadedError,
+    FrontendStats,
+    GridFrontend,
+    QueryTimeoutError,
+)
 
 __all__ = [
     "GridSession", "RunReport", "SessionMetrics",
+    "GridFrontend", "FrontendStats",
+    "FrontendOverloadedError", "QueryTimeoutError",
     "TensorTable", "ColumnFamily", "ColumnSpec",
     "Region", "RegionSet", "ConstantSizeSplitPolicy", "HierarchicalSplitPolicy",
     "NodeSpec", "assign_new_regions", "balanced_allocation",
@@ -80,6 +96,7 @@ __all__ = [
     "MapReduceEngine", "MapReduceProgram",
     "CountProgram", "MeanProgram", "VarianceProgram", "MomentsProgram",
     "HistogramProgram", "FusedProgram", "GroupedProgram", "GroupedResult",
+    "CountMinProgram", "HyperLogLogProgram", "QuantileSketchProgram",
     "indexed_query", "naive_query", "QueryStats",
     "GridQuery", "prefix_range",
     "BlockStore", "DeviceBlock", "LRUCache",

@@ -40,6 +40,7 @@ from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.blockstore import LRUCache
 from repro_torch.utils import (
@@ -98,6 +99,43 @@ def _sum0(s: torch.Tensor) -> torch.Tensor:
 
 def _max0(s: torch.Tensor) -> torch.Tensor:
     return s.amax(dim=0)
+
+
+_aten = torch.ops.aten
+_MATMULS = (_aten.mm, _aten.bmm, _aten.addmm, _aten.baddbmm)
+_NO_TRAFFIC = (_aten.empty, _aten.empty_like, _aten.empty_strided)
+
+
+class _CostCounter(TorchDispatchMode):
+    """Counts the FLOPs and bytes of the ATen ops run under it, by the rule
+    :meth:`MapReduceEngine.fold_cost` states."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is _aten.nonzero.default and args[0].is_meta:
+            # a data-dependent shape, taken at its largest: all nonzero
+            out = torch.empty((args[0].numel(), args[0].dim()),
+                              dtype=torch.int64, device="meta")
+        else:
+            out = func(*args, **(kwargs or {}))
+        if func.is_view or func.overloadpacket in _NO_TRAFFIC:
+            return out
+        ins = [x for x in tree_leaves((args, kwargs or {}))
+               if isinstance(x, torch.Tensor)]
+        outs = [x for x in tree_leaves(out) if isinstance(x, torch.Tensor)]
+        if func.overloadpacket in _MATMULS:
+            a, b = ins[-2], ins[-1]          # addmm/baddbmm: bias first
+            m, k = a.shape[-2], a.shape[-1]
+            batch = a.numel() // (m * k)
+            self.flops += 2 * batch * m * k * b.shape[-1]
+        else:
+            self.flops += max([x.numel() for x in ins + outs] or [0])
+        self.bytes += sum(x.numel() * x.element_size() for x in ins + outs)
+        return out
 
 
 class MapReduceProgram:
@@ -633,6 +671,56 @@ class MapReduceEngine:
                          for x in tree_leaves(tree))
             self._partial_bytes[key] = nbytes
         return nbytes
+
+    def fold_cost(
+        self,
+        program: MapReduceProgram,
+        rows: int,
+        row_shape: Tuple[int, ...],
+        dtype,
+        eta: int,
+        masked: bool = False,
+        groups: int = 0,
+    ) -> Mapping[str, float]:
+        """FLOPs and bytes of the chunked plain fold of one ``rows``-row
+        block (the fold :meth:`_block_fold_fn` builds, not the kernel) —
+        the oracle that shows a CSE'd fusion computes its shared
+        accumulators once per chunk (grouped folds via ``groups > 0``).
+
+        The fold runs once on ``meta`` tensors (no memory, no device work,
+        no ``compile_count`` bump) under a dispatch mode that counts every
+        ATen op it issues, over the WHOLE block — all ``ceil(rows / eta)``
+        chunks:
+
+        - views and ops that neither read nor write (``empty``) count
+          nothing;
+        - a matrix product (``mm``, ``bmm``, ``addmm``, ``baddbmm``)
+          counts ``2·M·N·K`` FLOPs;
+        - every other op (elementwise, reduction, conversion, copy,
+          scatter, factory) counts the larger of its largest tensor
+          input's and its largest output's element count;
+        - bytes count each counted op's tensor inputs and outputs;
+        - a shape that depends on the data (``nonzero``, which the
+          sketches use to drop invalid rows) is taken at its largest:
+          every row valid.
+
+        The reference reads XLA's ``cost_analysis``, which counts the
+        ``lax.scan`` body once: its figure is one chunk's, and does not
+        grow with ``rows`` at a fixed ``eta``.
+        """
+        fn = self._block_fold_fn(program, rows, row_shape, dtype, eta,
+                                 groups=int(groups))
+        tdt = torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+        meta = torch.device("meta")
+        block = torch.empty((rows,) + tuple(row_shape), dtype=tdt,
+                            device=meta)
+        mask = (torch.empty((rows,), dtype=torch.bool, device=meta)
+                if masked else None)
+        gids = (torch.empty((rows,), dtype=torch.int32, device=meta)
+                if groups else None)
+        with _CostCounter() as cost:
+            fn(block, mask, gids)
+        return {"flops": float(cost.flops), "bytes": float(cost.bytes)}
 
     # ------------------------------------------------------------------
     # layout-at-a-time path

@@ -10,9 +10,12 @@ chunk model and table scheme apply.
 Accumulation dtype defaults to float32; pass ``acc_dtype=torch.float64``
 for reference-grade accumulation.
 
-Port of ``src/repro/core/stats.py``, exact programs only: the sketches
-(count-min, HyperLogLog, quantiles) are not ported yet.  ``vmap`` over the
-group axis becomes a loop over groups whose results are stacked.
+Port of ``src/repro/core/stats.py``: the exact programs and the three
+sketches (count-min, HyperLogLog, dyadic quantiles).  ``vmap`` over the
+group axis becomes a loop over groups whose results are stacked.  The
+sketches' uint32 hashing runs in int64 masked to 32 bits (torch's
+``uint32`` lacks most operators), with every product kept below 2⁴⁸, so
+the card and the CPU hash bit-identically.
 """
 
 from __future__ import annotations
@@ -69,6 +72,142 @@ def _merge_leafwise(a: Any, b: Any, ops) -> Any:
     return tree_unflatten(
         treedef, [torch.maximum(x, y) if op == "max" else x + y
                   for x, y, op in zip(leaves_a, leaves_b, ops)])
+
+
+# ---------------------------------------------------------------------------
+# sketch support: deterministic seeded hashing (identical on host and device)
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``h * c mod 2^32`` for int64 ``h`` in ``[0, 2^32)``: ``c`` splits
+    into 16-bit halves so no product reaches 2^48 (no signed overflow),
+    and the high half's product only matters mod 2^16."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer (full avalanche) on uint32 values held
+    in int64 tensors (``[0, 2^32)``; ``>>`` is logical on them).  Integer
+    arithmetic only, so the card, the CPU and :func:`_host_fmix32` hash
+    bit-identically."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _host_fmix32(h: np.ndarray) -> np.ndarray:
+    h = h.astype(np.uint32)
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    h = h ^ (h >> np.uint32(16))
+    return h
+
+
+def _derive_seeds(seed: int, n: int) -> Tuple[int, ...]:
+    """``n`` decorrelated 32-bit hash seeds from one user seed (golden-ratio
+    stepping + fmix32) — Python-int arithmetic mod 2^32, computed once per
+    program instance so folds never pay for it."""
+    out = []
+    base = seed & 0xFFFFFFFF
+    for i in range(n):
+        h = (base + i * 0x9E3779B9) & 0xFFFFFFFF
+        h ^= h >> 16
+        h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+        h ^= h >> 13
+        h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+        h ^= h >> 16
+        out.append(h)
+    return tuple(out)
+
+
+def _item_keys(x: torch.Tensor) -> torch.Tensor:
+    """uint32 hash keys (int64 tensors in ``[0, 2^32)``) of values: the
+    float32 bit pattern with ``-0.0`` canonicalized to ``+0.0``, so equal
+    values always collide and the NumPy oracle
+    (:mod:`repro_torch.core.ref`) can reproduce the exact same item
+    universe.  ``torch.where`` keeps NaN payload bits, as the reference's
+    ``jnp.where`` does."""
+    xf = x.to(torch.float32)
+    xf = torch.where(xf == 0.0, torch.zeros((), device=x.device), xf)
+    return xf.contiguous().view(torch.int32).to(torch.int64) & _MASK32
+
+
+def _element_keys(rows: torch.Tensor, valid: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flatten a ``[eta, ...]`` chunk into per-element uint32 hash keys
+    and the element mask, as the reference does: invalid rows are zeroed
+    before the bitcast — their keys are well-defined garbage that the
+    returned element mask weights out.
+
+    Sketches treat every element of every valid row as one item of the
+    distribution (the same element-level semantics as
+    :class:`HistogramProgram`)."""
+    x = rows.reshape(rows.shape[0], -1)                       # [eta, E]
+    v = valid.to(torch.bool)[:, None].expand(x.shape)
+    xz = torch.where(v, x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return _item_keys(xz).reshape(-1), v.reshape(-1)
+
+
+def _valid_items(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The elements of a chunk's valid rows, flat.  An invalid row adds
+    nothing to a sketch (the reference hashes its zeroed items and weights
+    them 0), so the port drops it before hashing: a grouped fold hashes
+    each item once rather than once per group, and no zero-weight item
+    crowds one counter of the scatter.  The counts are the same."""
+    x = rows.reshape(rows.shape[0], -1)
+    sel = torch.nonzero(valid.to(torch.bool)).reshape(-1)
+    return x.index_select(0, sel).reshape(-1)
+
+
+def host_element_keys(values: np.ndarray) -> np.ndarray:
+    """Host mirror of the device key derivation: float32 bit patterns with
+    ``-0.0`` canonicalized — the item identity both the sketch programs and
+    the exact oracles share."""
+    xf = np.asarray(values, np.float32).reshape(-1)
+    xf = np.where(xf == 0.0, np.float32(0.0), xf)
+    return xf.view(np.uint32)
+
+
+def _compiled_scale(lo: float, hi: float, n: int) -> float:
+    """The factor the reference's compiled fold multiplies ``x - lo`` by
+    for ``(x - lo) / (hi - lo) * n``: XLA turns the division by a constant
+    into a product with its float32 reciprocal and folds ``n`` into that
+    constant, in float32 (a true division differs in the last bit)."""
+    return float(np.float32(np.float32(1.0) / np.float32(hi - lo))
+                 * np.float32(n))
+
+
+def _saturating_index(scaled: torch.Tensor, n: int) -> torch.Tensor:
+    """``clip(scaled.astype(int32), 0, n - 1)`` as XLA computes it: its
+    float→int32 cast saturates (NaN → 0), so clamping in float first and
+    then casting gives the same index; torch's own cast of a value past
+    2^31 (or of ±Inf) is undefined and lands in bucket 0 on the CPU."""
+    scaled = torch.nan_to_num(scaled, nan=0.0, posinf=float(n - 1),
+                              neginf=0.0)
+    return torch.clamp(scaled, 0, n - 1).to(torch.int64)
+
+
+def _item_count(items: torch.Tensor) -> torch.Tensor:
+    """The sketch's exact int32 item count ``n``."""
+    return torch.full((), items.numel(), dtype=torch.int32,
+                      device=items.device)
+
+
+def _scatter_counts(size: int, idx: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """``zeros(size, int32).at[idx].add(w)``: int32 adds are exact and
+    commute, so the counts do not depend on the order of the adds."""
+    return torch.zeros((size,), dtype=torch.int32,
+                       device=idx.device).index_add_(0, idx, w)
 
 
 #: The shared-accumulator vocabulary of the CSE protocol: the masked row
@@ -603,10 +742,10 @@ class HistogramProgram(MapReduceProgram):
 
     def map_chunk(self, rows, valid):
         x = rows.reshape(rows.shape[0], -1)
-        scaled = (x - self.lo) / (self.hi - self.lo) * self.bins
-        idx = torch.clamp(scaled.to(torch.int32), 0, self.bins - 1)
-        onehot = torch.nn.functional.one_hot(
-            idx.to(torch.int64), self.bins).to(torch.float32)
+        scaled = (x - self.lo) * _compiled_scale(self.lo, self.hi, self.bins)
+        idx = _saturating_index(scaled, self.bins)
+        onehot = torch.nn.functional.one_hot(idx, self.bins).to(
+            torch.float32)
         w = valid.to(torch.float32)[:, None, None]
         return {"hist": (onehot * w).sum(dim=(0, 1))}
 
@@ -615,3 +754,413 @@ class HistogramProgram(MapReduceProgram):
 
     def finalize(self, p):
         return p["hist"]
+
+
+# ---------------------------------------------------------------------------
+# approximate sketches: mergeable programs with provable error bounds
+# ---------------------------------------------------------------------------
+#
+# All three sketches below keep their state in fixed-shape int32 tensors
+# whose merge is a per-leaf elementwise sum or max.  That buys two
+# properties the exact monoids already enjoy, for free:
+#
+# - they ride every engine fast path (block-partial caching + .npz spill,
+#   grouped lifting, the tree reduce, frontend coalescing);
+# - their MERGE LAW is exact: integer sums and maxes are associative and
+#   commutative with no rounding, so funnel vs tree, owner pre-merge or not,
+#   any owner count — the merged sketch state is BIT-IDENTICAL, and every
+#   finalized estimate (a deterministic function of that state) is too.
+#
+# Determinism: all hashing is seeded murmur-fmix32 over canonicalized
+# float32 bit patterns (see _element_keys), identical on device and host.
+# Counts scatter with int32 ``index_add_``, which is exact and independent
+# of the order of its adds on the card and the CPU alike.
+
+
+def _host(x) -> np.ndarray:
+    """A result leaf (tensor on any device, or array) as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class CountMinProgram(MapReduceProgram):
+    """Count-min frequency sketch (Cormode–Muthukrishnan) over the selected
+    elements — the heavy-hitters program.
+
+    ``depth`` hash rows × ``width`` int32 counters plus the exact item count
+    ``n``.  Point estimates (:meth:`estimate`) never undercount, and
+    overcount by at most ``(e / width) · n`` with probability
+    ``1 - e^-depth`` per queried item (the classic ε–δ bound with
+    ``ε = e / width``, ``δ = e^-depth``).  :meth:`heavy_hitters` screens a
+    candidate set against a ``phi · n`` threshold: no true heavy hitter is
+    ever missed (one-sided error)."""
+
+    depth: int = 4
+    width: int = 1024
+    seed: int = 0
+    additive = True
+
+    def __post_init__(self):
+        if self.depth < 1:
+            raise ValueError(f"depth must be >= 1, got {self.depth}")
+        if self.width < 2 or (self.width & (self.width - 1)):
+            raise ValueError(
+                f"width must be a power of two >= 2, got {self.width}")
+        object.__setattr__(self, "_seeds",
+                           _derive_seeds(self.seed, self.depth))
+
+    def zero(self, row_shape, dtype):
+        return {"cm": torch.zeros((self.depth, self.width), dtype=torch.int32),
+                "n": torch.zeros((), dtype=torch.int32)}
+
+    def map_chunk(self, rows, valid):
+        keys = _item_keys(_valid_items(rows, valid))
+        ones = torch.ones_like(keys, dtype=torch.int32)
+        # one hash row at a time: the index stays [M] int64 however deep
+        # the sketch (the counts equal one flat scatter's: int32 adds)
+        cm = torch.zeros((self.depth, self.width), dtype=torch.int32,
+                         device=keys.device)
+        for d, seed in enumerate(self._seeds):
+            idx = _fmix32(keys ^ seed) & (self.width - 1)
+            cm[d].index_add_(0, idx, ones)
+        return {"cm": cm, "n": _item_count(keys)}
+
+    def merge(self, a, b):
+        return tree_map(_add, a, b)
+
+    def finalize(self, p):
+        return {"cm": p["cm"], "n": p["n"]}
+
+    # --- host-side query helpers (operate on the finalized result) -----
+
+    def _host_indices(self, values) -> np.ndarray:
+        keys = host_element_keys(values)                      # [M]
+        seeds = np.asarray(self._seeds, np.uint32)[:, None]   # [depth, 1]
+        return (_host_fmix32(keys[None, :] ^ seeds)
+                & np.uint32(self.width - 1)).astype(np.int64)
+
+    def estimate(self, result, values) -> np.ndarray:
+        """Frequency upper-estimates for ``values`` — min over the depth
+        rows; exact lower bound: ``estimate >= true frequency`` always."""
+        cm = _host(result["cm"])
+        idx = self._host_indices(values)                      # [depth, M]
+        rows = cm[np.arange(self.depth)[:, None], idx]
+        return rows.min(axis=0).astype(np.int64)
+
+    def heavy_hitters(self, result, values, phi: float):
+        """``(value, estimate)`` pairs from ``values`` whose estimated
+        frequency reaches ``phi * n``, descending.  One-sided: every true
+        phi-heavy hitter in ``values`` is returned (estimates never
+        undercount); false positives are bounded by the ε·n overcount."""
+        vals = np.asarray(values, np.float32).reshape(-1)
+        est = self.estimate(result, vals)
+        thresh = float(phi) * float(_host(result["n"]))
+        keep = est >= thresh
+        order = np.argsort(-est[keep], kind="stable")
+        return [(float(v), int(e))
+                for v, e in zip(vals[keep][order], est[keep][order])]
+
+    def error_bound(self, n: int) -> Tuple[float, float]:
+        """The documented (ε·n overcount, δ failure probability) pair for
+        one point query against a sketch holding ``n`` items."""
+        return (np.e / self.width) * float(n), float(np.exp(-self.depth))
+
+
+@dataclasses.dataclass(frozen=True)
+class HyperLogLogProgram(MapReduceProgram):
+    """HyperLogLog distinct-count sketch (Flajolet et al.) over the selected
+    elements' canonicalized float32 values.
+
+    ``m = 2^p`` int32 registers; each item's hash picks a register with its
+    top ``p`` bits and offers ``1 + leading-zeros`` of the rest.  Registers
+    merge by elementwise MAX — declared through
+    :meth:`~repro_torch.core.mapreduce.MapReduceProgram.merge_ops_for`, so
+    the engine's additive fast paths reduce with ``max(dim=0)`` instead of
+    sum while everything else (caching, spill, grouping, tree reduce) is
+    inherited unchanged.  Relative standard error of the estimate is
+    ``1.04 / sqrt(m)``; the linear-counting correction handles the
+    small-cardinality regime."""
+
+    p: int = 12
+    seed: int = 0
+    additive = True
+
+    def __post_init__(self):
+        if not 4 <= self.p <= 16:
+            raise ValueError(f"p must be in [4, 16], got {self.p}")
+        object.__setattr__(self, "_seed32", _derive_seeds(self.seed, 1)[0])
+
+    def merge_ops_for(self, partial):
+        return ["max"] * len(tree_leaves(partial))
+
+    def zero(self, row_shape, dtype):
+        return {"regs": torch.zeros((1 << self.p,), dtype=torch.int32)}
+
+    def map_chunk(self, rows, valid):
+        keys = _item_keys(_valid_items(rows, valid))
+        h = _fmix32(keys ^ self._seed32)
+        m = 1 << self.p
+        idx = h >> (32 - self.p)
+        tail = (h << self.p) & _MASK32          # the 32-p low hash bits
+        # clz of a 32-bit value is 32 minus its bit length, which frexp
+        # gives exactly (t < 2^53 as float64; a zero tail gives 32)
+        _, bits = torch.frexp(tail.to(torch.float64))
+        rank = torch.clamp_max(32 - bits, 32 - self.p).to(torch.int32) + 1
+        regs = torch.zeros((m,), dtype=torch.int32, device=keys.device)
+        return {"regs": regs.scatter_reduce_(0, idx, rank, "amax",
+                                             include_self=True)}
+
+    def merge(self, a, b):
+        return tree_map(torch.maximum, a, b)
+
+    def finalize(self, p_):
+        m = 1 << self.p
+        alpha = {16: 0.673, 32: 0.697, 64: 0.709}.get(
+            m, 0.7213 / (1.0 + 1.079 / m))
+        regs = p_["regs"]
+
+        # a Python scalar divided by a tensor takes the tensor's reciprocal
+        # first; a float32 tensor dividend divides as the reference does
+        def const(c):
+            return torch.full((), c, dtype=torch.float32, device=regs.device)
+
+        raw = (const(alpha * m * m)
+               / torch.sum(torch.exp2(-regs.to(torch.float32))))
+        zeros = torch.sum(regs == 0).to(torch.float32)
+        small = m * torch.log(const(m) / torch.clamp_min(zeros, 1.0))
+        est = torch.where((raw <= 2.5 * m) & (zeros > 0), small, raw)
+        return {"estimate": est, "registers": regs}
+
+    def std_error(self) -> float:
+        """Documented relative standard error: ``1.04 / sqrt(m)``."""
+        return 1.04 / float(np.sqrt(1 << self.p))
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantileSketchProgram(MapReduceProgram):
+    """Dyadic count-min rank/quantile sketch over a quantized universe.
+
+    Values in ``[lo, hi)`` quantize to ``U = 2^log2_universe`` buckets; each
+    item increments one count-min row per dyadic level (an item at bucket
+    ``b`` lives in interval ``b >> lvl`` of level ``lvl``).  A rank query
+    decomposes a prefix into at most ``log2_universe`` dyadic intervals and
+    sums their count-min estimates; quantiles descend the dyadic trie with
+    the same estimates.  All state is int32 counts, so — unlike a real
+    KLL/t-digest, whose compactions make the result depend on merge order —
+    the merged sketch is bit-identical under ANY merge tree, which is the
+    engine's merge-law contract.
+
+    **Dense fast path.**  Hashing into ``depth × width`` counters only pays
+    off when the universe exceeds the table: for ``U <= depth * width`` the
+    exact per-bucket counts fit in the SAME memory with strictly better
+    accuracy (zero rank error) and a fold of one scatter entry per item
+    instead of ``log2_universe · depth``.  Below that threshold the program
+    keeps the exact ``[U]`` histogram (``dense`` is True,
+    :meth:`rank_error_bound` returns 0); the count-min engages above it.
+    Both modes share the quantized-universe semantics, the additive int32
+    merge, and therefore the exact merge law.
+
+    **Count-min fold, bounded.**  The hashed cell of an item depends only
+    on its bucket, so a chunk with more items than buckets first counts
+    its items per bucket (one ``[U]`` scatter, as in dense mode) and then
+    scatters the ``U`` bucket counts into every (level, depth-row) lane;
+    a smaller chunk scatters its items into every lane directly, as the
+    reference does.  Either way the counts equal the reference's one flat
+    per-item scatter (int32 adds commute), and the index never exceeds
+    ``[L, D, U]`` however many items a chunk holds.
+
+    Error decomposition (documented, asserted in tests):
+
+    - rank: dense mode is exact over the quantized items.  In count-min
+      mode each lookup overcounts by at most ``(e / width) · n`` with
+      probability ``1 - e^-depth``; a prefix sums at most
+      ``log2_universe`` lookups, so the rank error is bounded by
+      ``log2_universe · (e / width) · n`` w.h.p. (never an undercount —
+      count-min is one-sided).
+    - value: quantization adds at most one bucket width
+      ``(hi - lo) / U`` to the returned quantile value (both modes).
+    """
+
+    lo: float = 0.0
+    hi: float = 1.0
+    log2_universe: int = 12
+    depth: int = 4
+    width: int = 2048
+    probes: Tuple[float, ...] = (0.5,)
+    seed: int = 0
+    additive = True
+
+    def __post_init__(self):
+        if not self.hi > self.lo:
+            raise ValueError(f"need hi > lo, got [{self.lo}, {self.hi})")
+        if not 1 <= self.log2_universe <= 20:
+            raise ValueError(
+                f"log2_universe must be in [1, 20], got {self.log2_universe}")
+        if self.depth < 1:
+            raise ValueError(f"depth must be >= 1, got {self.depth}")
+        if self.width < 2 or (self.width & (self.width - 1)):
+            raise ValueError(
+                f"width must be a power of two >= 2, got {self.width}")
+        probes = tuple(float(q) for q in self.probes)
+        if not probes or any(not 0.0 < q < 1.0 for q in probes):
+            raise ValueError(f"probes must lie in (0, 1), got {probes}")
+        object.__setattr__(self, "probes", probes)
+        # exact dyadic counts beat the CM whenever they fit its memory
+        object.__setattr__(self, "dense",
+                           (1 << self.log2_universe)
+                           <= self.depth * self.width)
+        # one decorrelated seed per (level, depth-row)
+        flat = _derive_seeds(self.seed, self.log2_universe * self.depth)
+        object.__setattr__(
+            self, "_seeds",
+            tuple(flat[lvl * self.depth:(lvl + 1) * self.depth]
+                  for lvl in range(self.log2_universe)))
+
+    # --- shared bucket/hash arithmetic --------------------------------
+
+    def _buckets(self, x, xp=torch):
+        """Quantize float32 values to universe buckets (``torch`` tensors
+        or, with ``xp=np``, numpy arrays), as the reference does:
+
+        - a tensor (the fold) scales as the reference's compiled fold does
+          (:func:`_compiled_scale`); a numpy array (the host helpers)
+          divides, as the reference's NumPy path does;
+        - the scaled value is clamped to ``[0, U - 1]`` in float before
+          the cast, which equals XLA's saturating float→int32 cast followed
+          by the clip (a plain cast of a value past 2^31 is undefined)."""
+        U = 1 << self.log2_universe
+        if xp is not np:
+            return _saturating_index(
+                (x - self.lo) * _compiled_scale(self.lo, self.hi, U), U)
+        scaled = (x - self.lo) / (self.hi - self.lo) * U
+        scaled = np.nan_to_num(scaled, nan=0.0, posinf=float(U - 1),
+                               neginf=0.0)
+        return np.clip(scaled, 0, U - 1).astype(np.int32)
+
+    def zero(self, row_shape, dtype):
+        if self.dense:
+            return {"cm": torch.zeros((1 << self.log2_universe,),
+                                      dtype=torch.int32),
+                    "n": torch.zeros((), dtype=torch.int32)}
+        return {"cm": torch.zeros((self.log2_universe, self.depth,
+                                   self.width), dtype=torch.int32),
+                "n": torch.zeros((), dtype=torch.int32)}
+
+    def _lane_cells(self, b: torch.Tensor) -> torch.Tensor:
+        """``[L, D, K]`` flat count-min cell of each of ``K`` buckets in
+        every (level, depth-row) lane: bucket ``b`` lands in interval
+        ``b >> lvl``, hashed with the lane's seed into its ``width``
+        counters."""
+        L, D = self.log2_universe, self.depth
+        dev = b.device
+        lvls = torch.arange(L, dtype=torch.int64, device=dev)
+        j = b[None, :] >> lvls[:, None]                       # [L, K]
+        seeds = torch.tensor(self._seeds, dtype=torch.int64, device=dev)
+        idx = _fmix32(j[:, None, :] ^ seeds[:, :, None]) & (self.width - 1)
+        lane = torch.arange(L * D, dtype=torch.int64,
+                            device=dev).reshape(L, D, 1)
+        return idx + lane * self.width
+
+    def map_chunk(self, rows, valid):
+        b = self._buckets(_valid_items(rows, valid).to(torch.float32))
+        w = torch.ones_like(b, dtype=torch.int32)             # [M]
+        U = 1 << self.log2_universe
+        n = _item_count(b)
+        if self.dense:                     # exact bucket counts, 1 scatter
+            return {"cm": _scatter_counts(U, b, w), "n": n}
+        L, D = self.log2_universe, self.depth
+        if b.numel() > U:
+            # more items than buckets: count per bucket first, then
+            # scatter the U bucket counts into every lane
+            b, w = torch.arange(U, device=b.device), _scatter_counts(U, b, w)
+        cells = self._lane_cells(b).reshape(-1)
+        cm = _scatter_counts(L * D * self.width, cells, w.repeat(L * D))
+        return {"cm": cm.reshape(L, D, self.width), "n": n}
+
+    def merge(self, a, b):
+        return tree_map(_add, a, b)
+
+    def _point_est(self, cm, lvl: int, j):
+        """Count-min estimate for interval ``j`` of level ``lvl``."""
+        seeds = torch.tensor(self._seeds[lvl], dtype=torch.int64,
+                             device=cm.device)
+        idx = _fmix32((j.to(torch.int64) & _MASK32) ^ seeds) \
+            & (self.width - 1)
+        return torch.min(cm[lvl, torch.arange(self.depth,
+                                              device=cm.device), idx])
+
+    def finalize(self, p):
+        """Estimate each probe quantile — dense mode reads the exact rank
+        off the bucket cumsum; count-min mode descends the dyadic trie in
+        ``log2_universe`` steps of lookups, on the partial's device.
+        ``n == 0`` finalizes to NaN quantiles."""
+        cm, n = p["cm"], p["n"]
+        L = self.log2_universe
+        U = 1 << L
+        dev = cm.device
+        nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
+        outs = []
+        if self.dense:
+            cum = torch.cumsum(cm, 0, dtype=torch.int32)
+            for q in self.probes:
+                r = torch.clamp_min(
+                    torch.ceil(q * n.to(torch.float32)).to(torch.int32), 1)
+                b = torch.clamp_max(
+                    torch.searchsorted(cum, r.reshape(1), side="left")[0],
+                    U - 1).to(torch.int32)
+                val = self.lo + (b.to(torch.float32) + 0.5) \
+                    * (self.hi - self.lo) / U
+                outs.append(torch.where(n > 0, val, nan))
+            return {"quantiles": torch.stack(outs), "n": n, "cm": cm}
+        for q in self.probes:
+            r = torch.clamp_min(
+                torch.ceil(q * n.to(torch.float32)).to(torch.int32), 1)
+            b = torch.zeros((), dtype=torch.int32, device=dev)
+            cum = torch.zeros((), dtype=torch.int32, device=dev)
+            for lvl in range(L - 1, -1, -1):
+                c = self._point_est(cm, lvl, b >> lvl)
+                go_right = cum + c < r
+                cum = torch.where(go_right, cum + c, cum)
+                b = torch.where(go_right, b + (1 << lvl), b)
+            val = self.lo + (b.to(torch.float32) + 0.5) \
+                * (self.hi - self.lo) / U
+            outs.append(torch.where(n > 0, val, nan))
+        return {"quantiles": torch.stack(outs), "n": n, "cm": cm}
+
+    # --- host-side query helpers (operate on the finalized result) -----
+
+    def rank_estimate(self, result, values) -> np.ndarray:
+        """Estimated rank (count of items strictly below each value's
+        bucket) — exact in dense mode; in count-min mode the dyadic
+        decomposition never undercounts and overcounts by at most
+        ``log2_universe * (e/width) * n`` w.h.p."""
+        cm = _host(result["cm"])
+        b = self._buckets(np.asarray(values, np.float32).reshape(-1), np)
+        if self.dense:
+            cum = np.cumsum(cm.astype(np.int64))
+            return np.where(b > 0, cum[np.maximum(b, 1) - 1], 0)
+        rank = np.zeros(b.shape, np.int64)
+        for lvl in range(self.log2_universe):
+            sel = (b >> lvl) & 1 == 1
+            if not sel.any():
+                continue
+            j = ((b[sel].astype(np.int64) >> (lvl + 1)) << 1).astype(np.uint32)
+            seeds = np.asarray(self._seeds[lvl], np.uint32)[:, None]
+            idx = (_host_fmix32(j[None, :] ^ seeds)
+                   & np.uint32(self.width - 1)).astype(np.int64)
+            ests = cm[lvl][np.arange(self.depth)[:, None], idx].min(axis=0)
+            rank[sel] += ests
+        return rank
+
+    def rank_error_bound(self, n: int) -> float:
+        """Documented w.h.p. rank-error bound for one rank query — 0 in
+        dense mode (exact over the quantized items)."""
+        if self.dense:
+            return 0.0
+        return self.log2_universe * (np.e / self.width) * float(n)
+
+    def value_resolution(self) -> float:
+        """Quantization granularity: one universe bucket width."""
+        return (self.hi - self.lo) / (1 << self.log2_universe)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -278,7 +279,7 @@ def fused_fold_cuda(x: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
             plan.powers, plan.threads, plan.lanes, plan.chunk_rows,
             plan.smem, plan.grid, out_s.data_ptr(), out_c.data_ptr(), stream)
     check_launch(err, "fused_fold")
-    fused_fold_cuda.launches += 1
+    _count_launch()
     out: Dict[str, torch.Tensor] = {}
     if want_count:
         out["count"] = out_c
@@ -288,6 +289,14 @@ def fused_fold_cuda(x: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
 
 
 fused_fold_cuda.launches = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch() -> None:
+    """One more launch on ``fused_fold_cuda.launches``; locked, since the
+    frontend folds on several threads at once."""
+    with _COUNT_LOCK:
+        fused_fold_cuda.launches += 1
 
 
 def fused_fold_block(x: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,

@@ -520,3 +520,29 @@ class TestStreamingStats:
                                    torch.zeros(32, dtype=torch.bool))
         assert float(c) == 0
         assert (s == 0).all() and (sq == 0).all()
+
+
+def test_launch_count_exact_under_threads():
+    """The frontend folds on several threads: the launch count loses no
+    bump when sixteen threads count at once with a tiny switch interval."""
+    import sys
+    import threading
+
+    from repro_torch.kernels.fused_fold import kernel as K
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    K.fused_fold_cuda.launches = 0
+    try:
+        threads = [threading.Thread(target=lambda: [K._count_launch()
+                                                    for _ in range(2000)])
+                   for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        assert K.fused_fold_cuda.launches == 16 * 2000
+    finally:
+        sys.setswitchinterval(old)
+        K.fused_fold_cuda.launches = 0

@@ -250,3 +250,21 @@ def test_layout_run_matches_reference():
         got, gstats = MapReduceEngine(["cpu"]).run(pp, vals, valid, 8)
         assert_tree_close(got, want)
         assert dataclasses.astuple(gstats) == dataclasses.astuple(wstats)
+
+
+@pytest.mark.parametrize("lo,hi,bins", [(-3.0, 3.0, 8), (-3.0, 3.0, 10),
+                                        (-2.5, 4.0, 12)])
+def test_histogram_bins_match_the_compiled_reference(lo, hi, bins):
+    """Every item lands in the bin the reference's compiled fold gives it,
+    ±Inf, NaN and values past 2^31 bin widths included (its float→int32
+    cast saturates; torch's does not)."""
+    r = np.random.default_rng(12)
+    x = (r.normal(size=(64, 500)) * 4).astype(np.float32)
+    x[0, :8] = [np.inf, -np.inf, np.nan, 1e30, -1e30, 3e9, -3e9, hi]
+    valid = r.random(64) < 0.9
+    valid[0] = True
+    want = jax.jit(R.HistogramProgram(lo=lo, hi=hi, bins=bins).map_chunk)(
+        jnp.asarray(x), jnp.asarray(valid))["hist"]
+    got = P.HistogramProgram(lo=lo, hi=hi, bins=bins).map_chunk(
+        torch.from_numpy(x), torch.from_numpy(valid))["hist"]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
