@@ -21,7 +21,10 @@
 4. Holds K2 and K3 against their plain versions (and K3 against the
    literal recurrence) on the reference kernel tests' shapes and at the
    serving shapes; K2 in f32, bf16 and f16 at head dims 64 and 128 (and
-   qwen3-8b's GQA heads at D 128), K3 with f32 and bf16 B/C, from a zero
+   qwen3-8b's GQA heads at D 128, and phase (i)'s calls: mixtral's window
+   of 4096 over 6144 tokens, qwen2-vl's 28 over 4 heads, whisper's
+   encoder over 1500 frames, its cross-attention and its decoder), K3
+   with f32 and bf16 B/C, from a zero
    and from a random initial state, checking which variant ran.  Then one
    Mamba2 layer of zamba2-1.2b at full width runs ``ssm_full`` over the
    serving prompt and over its two halves, the second from the first's
@@ -56,6 +59,19 @@
    with the kernels' plain versions on the same token stream (bf16
    activations: the wgmma variants of K2 and K3; fp32: their simt
    variants).
+   (i) Then serves the other families at full width, each freed from the
+   card before the next: mixtral-8x7b (8 of 32 layers, bf16 parameters;
+   4 x 6144 prompt tokens, past its 4096-token window, 32 new),
+   deepseek-v3-671b (4 of 61 layers, 3 dense + 1 MoE, no MTP block, bf16
+   parameters; 2 x 1024, 8 new), rwkv6-3b (4 x 512, 16 new), qwen2-vl-7b
+   (4 x 2048, 16 new) through ``ServeEngine(device="cuda")``, and
+   whisper-large-v3 (4 x 1500 stub frames, a 64-token prompt, 16 new)
+   through ``EncDecModel.prefill`` and ``decode_step``.  For each: init
+   seconds and peak, prefill seconds, decode tokens/s, peak memory, K2's
+   launches by variant per prefill (8, 0, 0, 28 and 96 wgmma), a profiler
+   trace of one prefill, finite logits; for mixtral, qwen2-vl and whisper
+   also 2 layers of full width in fp32, one request, logits at every
+   prompt position on the kernels against ``plain_kernels()``.
 7. Times K2's two variants, SDPA and the plain version in turns at the
    serving call (and the simt kernel, SDPA and the plain version in fp32,
    the simt kernel's serving dtype) and at qwen3-8b's D=128 GQA shape,
@@ -123,10 +139,11 @@ from repro_torch.kernels.ssm_scan.ref import (  # noqa: E402
     ssd_chunked_ref,
     ssd_scan_sequential,
 )
-from repro_torch.configs import zamba2_1p2b  # noqa: E402
+from repro_torch.configs import get_config, zamba2_1p2b  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
+    _pad_attn_cache,
     build_model,
     cast_for_compute,
     pad_caches,
@@ -368,7 +385,17 @@ K2_CASES = K2_BASE_CASES + [
     for B, H, Hkv, Sq, Skv, causal, window in K2_GEOMETRIES
     for dt in (BF16, F16) for D in (64, 128)
     if (B, H, Hkv, Sq, Skv, D, causal, window, dt) not in K2_BASE_CASES
-] + [(8, 32, 8, 2048, 2048, 128, True, 0, BF16)]
+] + [(8, 32, 8, 2048, 2048, 128, True, 0, BF16)] + [
+    # phase (i)'s serving calls, at batch 1 where the plain version's
+    # [B, H, Sq, Skv] fp32 scores would not fit: mixtral (window 4096 past
+    # a 6144-token prompt), qwen2-vl, whisper's encoder, cross-attention
+    # (Sq != Skv, not causal) and decoder
+    (1, 32, 8, 6144, 6144, 128, True, 4096, BF16),
+    (4, 28, 4, 2048, 2048, 128, True, 0, BF16),
+    (4, 20, 20, 1500, 1500, 64, False, 0, BF16),
+    (4, 20, 20, 64, 1500, 64, False, 0, BF16),
+    (4, 20, 20, 64, 64, 64, True, 0, BF16),
+]
 #: f32 at the reference tests' 2e-5, scaled by 5 for the card's exp and
 #: summation order; bf16 outputs at the reference's 2e-2, which also
 #: covers P rounded to bf16 (2^-9 relative) before the second product;
@@ -1582,6 +1609,244 @@ def serve_path():
     return out
 
 
+# ----------------------------------------------------------------------
+# phase (i): the MoE, MLA, RWKV-6, M-RoPE and encoder-decoder families
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """One serving family at full width: ``cut`` replaces config fields
+    (only where memory forces it), ``cuts`` says so in words; ``k2`` is
+    K2's wgmma launches per prefill; ``check`` runs the fp32 kernel-vs-
+    plain comparison at 2 layers."""
+    arch: str
+    cut: tuple
+    cuts: str
+    batch: int
+    prompt: int
+    new: int
+    k2: int
+    check: bool
+
+
+FAMILIES = (
+    Family("mixtral_8x7b", (("n_layers", 8), ("param_dtype", BF16)),
+           "8 of 32 layers; param_dtype bf16", 4, 6144, 32, 8, True),
+    Family("deepseek_v3_671b", (("n_layers", 4), ("mtp_depth", 0),
+                                ("param_dtype", BF16)),
+           "4 of 61 layers (3 dense + 1 MoE); mtp_depth 0; param_dtype bf16",
+           2, 1024, 8, 0, False),
+    Family("rwkv6_3b", (), "none", 4, 512, 16, 0, False),
+    Family("qwen2_vl_7b", (), "none", 4, 2048, 16, 28, True),
+    # the prompt is the decoder's; 1,500 stub frames feed the encoder, and
+    # K2 runs 32 encoder, 32 self- and 32 cross-attention calls
+    Family("whisper_large_v3", (), "none", 4, 64, 16, 96, True),
+)
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def k2_counts():
+    return dict(K2.flash_attention_cuda.by_variant)
+
+
+def encdec_generate(model, params, frames, prompts, new, capacity):
+    """Greedy whisper decoding through ``EncDecModel.prefill`` and
+    ``decode_step`` (the engine serves decoder-only models, as the
+    reference's does) -> (tokens [B, new], prefill s, decode s, the
+    prefill's logits)."""
+    B, S = prompts.shape
+    t0 = time.perf_counter()
+    logits, (caches, kv) = model.prefill(params, frames, prompts)
+    state = (_pad_attn_cache(model.cfg, caches, capacity), kv)
+    tok = torch.argmax(logits, dim=-1)
+    first = logits
+    out = [tok.cpu()]
+    t1 = time.perf_counter()
+    pos = torch.full((B,), S, dtype=torch.int64, device=DEV)
+    for _ in range(new - 1):
+        logits, state = model.decode_step(params, tok, pos, state)
+        tok = torch.argmax(logits, dim=-1)
+        pos = pos + 1
+        out.append(tok.cpu())
+    t2 = time.perf_counter()
+    return torch.stack(out, dim=1).numpy(), t1 - t0, t2 - t1, first
+
+
+def family_inputs(cfg, fam, gen, batch=None):
+    """Seeded prompts ``[B, S]`` (int64 on the card) and, for whisper,
+    frames ``[B, 1500, D]`` in the compute dtype."""
+    B = batch or fam.batch
+    prompts = torch.randint(0, cfg.vocab, (B, fam.prompt), generator=gen,
+                            device=DEV)
+    frames = None
+    if cfg.is_encdec:
+        frames = torch.randn(B, cfg.encoder.n_frames, cfg.d_model,
+                             generator=gen, device=DEV).to(cfg.dtype)
+    return prompts, frames
+
+
+def f32_check(fam):
+    """The family's full width at 2 layers in fp32, one request, its
+    logits at every prompt position on the kernels and under
+    ``plain_kernels()``; K2 must run its simt variant twice a layer stack
+    (six times for whisper)."""
+    cut = dict(fam.cut, n_layers=2, dtype=F32, param_dtype=F32)
+    cfg = get_config(fam.arch)
+    if cfg.is_encdec:
+        cut["encoder"] = dataclasses.replace(cfg.encoder, n_layers=2)
+    cfg = dataclasses.replace(cfg, **cut)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    model = build_model(cfg)
+    params = model.init(gen, DEV)
+    prompts, frames = family_inputs(cfg, fam, gen, batch=1)
+    args = (frames, prompts) if cfg.is_encdec else (prompts,)
+    K2.reset_counts()
+    kern, _ = model.forward(params, *args)
+    variants = k2_counts()
+    want = 3 * cfg.n_layers if cfg.is_encdec else cfg.n_layers
+    check(variants == {"wgmma": 0, "simt": want},
+          f"{fam.arch} fp32 K2 variants {variants}")
+    with plain_kernels():
+        plain, _ = model.forward(params, *args)
+    check(K2.flash_attention_cuda.launches == want,
+          "the plain-kernel run launched K2")
+    check(bool(torch.isfinite(kern).all() and torch.isfinite(plain).all()),
+          f"{fam.arch} fp32 logits not finite")
+    err, mean = gaps(kern, plain)
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    check(err <= F32_LOGIT_TOL and agree >= F32_GREEDY_MIN,
+          f"{fam.arch} fp32 kernel vs plain logits: max {err:.3g}, greedy "
+          f"agreement {agree:.3f}")
+    out = {"max_err": err, "mean_err": mean, "greedy": agree,
+           "positions": int(kern.shape[1]), "variants": variants,
+           "absmax": float(plain.abs().max())}
+    del params, kern, plain
+    free_card()
+    return out
+
+
+def family_phase(fam):
+    """One family at full width through its entry points; returns its
+    measurements.  The card is freed before it returns."""
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_config(fam.arch), **dict(fam.cut))
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    model = build_model(cfg)
+    capacity = fam.prompt + fam.new + 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(gen, DEV)
+    prompts, frames = family_inputs(cfg, fam, gen)
+    if cfg.is_encdec:
+        params = cast_for_compute(cfg, params, DEV)   # the engine's cast
+        run = lambda p, n: encdec_generate(        # noqa: E731
+            model, params, frames, p, n, capacity)
+        prefill = lambda: model.prefill(params, frames, prompts)  # noqa: E731
+    else:
+        engine = ServeEngine(cfg, params, capacity=capacity,
+                             batch_size=fam.batch, device=DEV)
+        del params
+        host = prompts.cpu().numpy()
+        run = lambda p, n: engine.generate(p, n)   # noqa: E731
+        prefill = lambda: engine.model.prefill(    # noqa: E731
+            engine.params, prompts)
+    free_card()
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "params": cfg.param_count(),
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.is_encdec:
+        out["frames"] = cfg.encoder.n_frames
+    warm = 64 if not cfg.is_encdec else fam.prompt
+    run(prompts[:, :warm] if cfg.is_encdec else host[:, :warm], 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K2.reset_counts()
+    if cfg.is_encdec:
+        tokens, out["prefill_s"], out["decode_s"], logits = run(prompts,
+                                                                fam.new)
+    else:
+        res = run(host, fam.new)
+        tokens, out["prefill_s"], out["decode_s"] = (res.tokens,
+                                                     res.prefill_s,
+                                                     res.decode_s)
+    torch.cuda.synchronize()
+    out["k2"] = k2_counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["decode_tok_s"] = fam.batch * (fam.new - 1) / out["decode_s"]
+    check(out["k2"] == {"wgmma": fam.k2, "simt": 0},
+          f"{fam.arch}: K2 by variant per prefill {out['k2']}, want "
+          f"{fam.k2} wgmma")
+    check(tokens.shape == (fam.batch, fam.new) and tokens.min() >= 0
+          and tokens.max() < cfg.vocab, f"{fam.arch}: generated tokens")
+    got = []
+    K2.reset_counts()
+    out["trace"] = device_breakdown(lambda: got.append(prefill()))
+    logits = got[0][0]
+    check(K2.flash_attention_cuda.launches == fam.k2
+          and out["trace"][2].get("K2", 0) == fam.k2
+          and "K2 simt" not in out["trace"][2],
+          f"{fam.arch}: traced prefill K2 launches "
+          f"{K2.flash_attention_cuda.launches}, profiler {out['trace'][2]}")
+    check(logits.shape == (fam.batch, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{fam.arch}: prefill logits not finite")
+    out["tokens_head"] = tokens[0, :8].tolist()
+    del got, logits, run, prefill
+    if cfg.is_encdec:
+        del params
+    else:
+        del engine
+    free_card()
+    if fam.check:
+        out["f32"] = f32_check(fam)
+    out["phase_s"] = time.perf_counter() - t_start
+    return out
+
+
+def families_phase():
+    return {fam.arch: family_phase(fam) for fam in FAMILIES}
+
+
+def report_families(fm, card):
+    for fam in FAMILIES:
+        r = fm[fam.arch]
+        traffic = (f"{fam.batch} requests, "
+                   + (f"{r['frames']} stub frames and a " if "frames" in r
+                      else "")
+                   + f"{fam.prompt}-token prompt, {fam.new} new tokens")
+        log(f"phase (i) {fam.arch} on {card}: {r['layers']} layers, d_model "
+            f"{r['d_model']}, {r['params'] / 1e9:.3f} B params; cuts: "
+            f"{fam.cuts}; {traffic}, bf16, greedy: init {r['init_s']:.2f} s "
+            f"(peak {r['init_peak_gb']:.1f} GB), prefill "
+            f"{r['prefill_s']:.3f} s, decode {r['decode_tok_s']:.1f} tok/s "
+            f"({r['decode_s']:.3f} s for {fam.new - 1} steps), peak device "
+            f"memory serving {r['peak_gb']:.1f} GB; K2 by variant per "
+            f"prefill {r['k2']}; first request's tokens {r['tokens_head']}; "
+            f"phase {r['phase_s']:.1f} s")
+        w, secs, calls, top = r["trace"]
+        busy = sum(secs.values())
+        log(f"  traced prefill on {card}: wall {w:.4f} s, device busy "
+            f"{busy:.4f} s (idle share {1 - busy / w:.3f}): " + ", ".join(
+                f"{k} {secs[k]:.4f} s/{calls[k]} kernels"
+                for k in sorted(secs, key=lambda k: -secs[k])))
+        for evt_name, (sec, n) in top:
+            log(f"    {sec:.4f} s in {n} calls: {evt_name[:90]}")
+        if "f32" in r:
+            c = r["f32"]
+            log(f"  fp32 at 2 layers of full width, one request, logits at "
+                f"all {c['positions']} positions, kernels vs plain_kernels()"
+                f": max |logit diff| {c['max_err']:.4g}, mean "
+                f"{c['mean_err']:.3g} (tolerance {F32_LOGIT_TOL}; max |logit|"
+                f" {c['absmax']:.3g}), greedy agreement "
+                f"{c['greedy'] * 100:.2f}% (min {F32_GREEDY_MIN * 100:.0f}%);"
+                f" K2 {c['variants']}")
+
+
 #: K2's timed calls: zamba2-1.2b's prefill attention, and qwen3-8b's
 #: heads (32 query heads over 8 KV heads of 128) at the same batch and
 #: prompt; (B, H, Hkv, S, D), bf16, causal, as [B, S, H, D] views
@@ -1961,6 +2226,10 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     sv = serve_path()
     report_serve(sv, card)
+    t0 = time.perf_counter()
+    fm = families_phase()
+    report_families(fm, card)
+    log(f"phase (i) families {time.perf_counter() - t0:.1f} s")
 
     k2m = {tag: measure_k2(gen, *shape, f32=tag == "zamba2")
            for tag, shape in K2_TIMED.items()}

@@ -104,17 +104,21 @@ def partial_from_numpy(leaves: Sequence[np.ndarray], treedef: Any,
     return tree_map(lambda x: x.to(torch.device(device)), partial)
 
 
-def lm_params_from_jax(cfg, params: Any, device="cpu") -> Any:
-    """The port's LM weights from the reference's parameter tree.
+def lm_params_from_jax(cfg, params: Any, device="cuda") -> Any:
+    """The port's model weights from the reference's parameter tree.
 
-    ``params`` is the reference ``LM.init`` tree with every leaf as a numpy
-    array (``jax.tree.map(np.asarray, params)``): ``"embed"``,
-    ``"final_norm"``, ``"lm_head"``, ``"shared_block"`` and ``"runs"``
-    with stacked ``[n, ...]`` leaves.  Returns the same tree of tensors in
-    ``cfg.param_dtype`` on ``device``, checked leaf by leaf against the
-    shapes of the port's own ``LM.init`` (on the ``meta`` device)."""
-    from repro_torch.models.model import build_model
+    ``params`` is the reference ``build_model(cfg).init`` tree with every
+    leaf as a numpy array (``jax.tree.map(np.asarray, params)``): a decoder
+    stack's ``"embed"``, ``"final_norm"``, ``"lm_head"``, ``"shared_block"``,
+    ``"runs"`` with stacked ``[n, ...]`` leaves and ``"mtp"``, or whisper's
+    ``"embed"``, ``"pos_embed"``, ``"encoder"``, ``"decoder"`` and their
+    norms.  Returns the same tree of tensors in ``cfg.param_dtype`` on
+    ``device`` (the card unless the caller asks for ``"cpu"``), checked leaf
+    by leaf against the shapes of the port's own ``init`` on the ``meta``
+    device."""
+    from repro_torch.models.model import build_model, resolve_device
 
+    device = resolve_device(device)
     want = build_model(cfg).init(device="meta")
 
     def conv(p, w, path):

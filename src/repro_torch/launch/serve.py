@@ -7,7 +7,9 @@ Port of ``src/repro/launch/serve.py``::
 
 Runs on the card; ``--device cpu`` (with ``--reduced`` for the smoke
 configs) runs it on the CPU.  Without CUDA and without ``--device cpu`` it
-raises.
+raises.  It serves every decoder-only family; for an encoder-decoder model
+(whisper) it stops, as the reference does: drive ``EncDecModel.prefill``
+and ``decode_step`` instead.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ def main(argv=None):
         raise RuntimeError("no CUDA device: pass --device cpu to serve on "
                            "the CPU")
     cfg = get_config(args.arch, reduced=args.reduced)
+    if cfg.is_encdec:
+        raise SystemExit("the serving engine does not serve encoder-decoder "
+                         "models: drive EncDecModel.prefill / decode_step")
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device)

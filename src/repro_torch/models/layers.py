@@ -1,13 +1,13 @@
-"""Shared layer primitives: RMS norm, RoPE, SwiGLU, embeddings.
+"""Shared layer primitives: norms, RoPE and M-RoPE, MLPs, embeddings.
 
-Port of the parts of ``src/repro/models/layers.py`` that the ported
-families use.  ``compute_dtype`` casts mirror the reference's ``astype``
-calls; they cost nothing when the weights already hold that dtype.
+Port of ``src/repro/models/layers.py``.  ``compute_dtype`` casts mirror
+the reference's ``astype`` calls; they cost nothing when the weights
+already hold that dtype.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,8 +25,24 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (x * weight.to(torch.float32)).to(dt)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """fp32 inside (population variance), cast back to x's dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.to(torch.float32) + bias.to(torch.float32)).to(dt)
+
+
 def init_rms_norm(d: int, dtype, init: Init) -> Dict:
     return {"scale": init.full((d,), 1.0, dtype)}
+
+
+def init_layer_norm(d: int, dtype, init: Init) -> Dict:
+    return {"scale": init.full((d,), 1.0, dtype),
+            "bias": init.full((d,), 0.0, dtype)}
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -49,6 +65,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int] = (1, 1, 2)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: ``positions3 [..., 3, S]`` carries
+    (temporal, height, width) ids, and the head dim's frequency bands are
+    split among them in the ratio ``sections``.  The band bounds are
+    Python ``int(half * s / total)``, as in the reference; text tokens
+    carry one id in all three channels, which reduces to RoPE."""
+    d = x.shape[-1]
+    half = d // 2
+    inv = rope_freqs(d, theta, x.device)                  # [half]
+    total = sum(sections)
+    bounds, acc = [], 0
+    for s in sections:
+        acc += int(half * s / total)
+        bounds.append(acc)
+    bounds[-1] = half
+    band = torch.zeros(half, dtype=torch.int64, device=x.device)
+    band[bounds[0]:bounds[1]] = 1
+    band[bounds[1]:] = 2
+    # [..., 3, S] -> [..., S, 3] -> the channel of each band -> [..., S, half]
+    p = positions3.to(torch.float32).movedim(-2, -1)
+    ang = p[..., band] * inv
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoid_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings ``[n, d]`` (fp32)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10_000.0, device=device),
+                          2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def init_swiglu(d_model: int, d_ff: int, dtype, init: Init) -> Dict:
     return {
         "gate": normal_init(init, (d_model, d_ff), dtype),
@@ -61,6 +115,22 @@ def swiglu_apply(p: Dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     h = x @ p["gate"].to(compute_dtype)
     u = x @ p["up"].to(compute_dtype)
     return (F.silu(h) * u) @ p["down"].to(compute_dtype)
+
+
+def init_gelu_mlp(d_model: int, d_ff: int, dtype, init: Init) -> Dict:
+    return {
+        "fc1": normal_init(init, (d_model, d_ff), dtype),
+        "b1": init.full((d_ff,), 0.0, dtype),
+        "fc2": normal_init(init, (d_ff, d_model), dtype),
+        "b2": init.full((d_model,), 0.0, dtype),
+    }
+
+
+def gelu_mlp_apply(p: Dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """The reference's GELU is the tanh form (``approximate=True``)."""
+    h = x @ p["fc1"].to(compute_dtype)
+    h = F.gelu(h + p["b1"].to(compute_dtype), approximate="tanh")
+    return h @ p["fc2"].to(compute_dtype) + p["b2"].to(compute_dtype)
 
 
 def init_embedding(vocab: int, d_model: int, dtype, init: Init) -> Dict:

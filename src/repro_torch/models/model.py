@@ -1,11 +1,15 @@
 """Model interface for serving: init / forward / prefill / decode.
 
-Port of the decoder-only parts of ``src/repro/models/model.py``.
-``build_model(cfg)`` returns an :class:`LM`; the families not ported yet
-raise ``NotImplementedError``.  Parameters and caches are plain nested
+Port of ``src/repro/models/model.py``.  ``build_model(cfg)`` returns an
+:class:`LM` (decoder stacks, the VLM stub's ``embeds=`` input included) or
+an :class:`EncDecModel` (whisper).  Parameters and caches are plain nested
 dicts and lists of tensors with the reference's structure, so
 ``repro_torch.convert.lm_params_from_jax`` carries the reference's weights
-across leaf by leaf.  Everything runs without autograd.
+across leaf by leaf.  Everything runs without autograd.  Parameters and
+caches are made on the card unless the caller asks for ``device="cpu"``
+(or ``"meta"``, which allocates nothing); without CUDA that raises.
+Training (``forward_train``, ``forward_hidden``, ``mtp_logits``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -16,24 +20,47 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_apply
 from repro_torch.models.params import Init
+from repro_torch.models.rwkv import rwkv_dims
 from repro_torch.models.ssm import ssm_dims
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without CUDA
+    raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the model runs on CUDA and none is available; "
+                           "pass device=\"cpu\" to run it on the CPU")
+    return device
 
 
 # ----------------------------------------------------------------------
 # cache construction
 # ----------------------------------------------------------------------
 
+def _zeros(shape, dtype, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
 def _attn_cache(cfg: ModelConfig, n: Optional[int], B: int, T: int,
                 device) -> Dict:
-    """KV cache for one run of n layers (n=None: unstacked)."""
+    """KV (or MLA latent) cache for one run of n layers (n=None:
+    unstacked)."""
     lead = () if n is None else (n,)
+    if cfg.mla:
+        m = cfg.mla
+        return {"c_kv": _zeros(lead + (B, T, m.kv_lora_rank), cfg.dtype,
+                               device),
+                "k_rope": _zeros(lead + (B, T, m.qk_rope_head_dim),
+                                 cfg.dtype, device)}
     shape = lead + (B, T, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    return {"k": _zeros(shape, cfg.dtype, device),
+            "v": _zeros(shape, cfg.dtype, device)}
 
 
 def _ssm_cache(cfg: ModelConfig, n: Optional[int], B: int, device) -> Dict:
@@ -41,49 +68,67 @@ def _ssm_cache(cfg: ModelConfig, n: Optional[int], B: int, device) -> Dict:
     d_inner, H, N = ssm_dims(cfg)
     lead = () if n is None else (n,)
     return {
-        "conv": torch.zeros(lead + (B, s.conv_width - 1, d_inner + 2 * N),
-                            dtype=cfg.dtype, device=device),
-        "ssm": torch.zeros(lead + (B, H, s.head_dim, N), dtype=torch.float32,
-                           device=device),
+        "conv": _zeros(lead + (B, s.conv_width - 1, d_inner + 2 * N),
+                       cfg.dtype, device),
+        "ssm": _zeros(lead + (B, H, s.head_dim, N), torch.float32, device),
     }
 
 
-def init_cache(cfg: ModelConfig, B: int, T: int, device="cpu") -> List[Any]:
+def _rwkv_cache(cfg: ModelConfig, n: Optional[int], B: int, device) -> Dict:
+    H, N = rwkv_dims(cfg)
+    lead = () if n is None else (n,)
+    return {
+        "time": {"S": _zeros(lead + (B, H, N, N), torch.float32, device),
+                 "x_prev": _zeros(lead + (B, cfg.d_model), cfg.dtype,
+                                  device)},
+        "channel": {"x_prev": _zeros(lead + (B, cfg.d_model), cfg.dtype,
+                                     device)},
+    }
+
+
+def init_cache(cfg: ModelConfig, B: int, T: int, device="cuda"
+               ) -> List[Any]:
     """Fixed-capacity decode caches, one entry per run."""
+    device = resolve_device(device)
     caches: List[Any] = []
     for run in tf.build_runs(cfg):
-        n = run.n if tf.stacked(run, cfg) else None
         if run.kind == "attn_shared":
             caches.append(_attn_cache(cfg, None, B, T, device))
             continue
         make = {"attn": lambda k: _attn_cache(cfg, k, B, T, device),
-                "ssm": lambda k: _ssm_cache(cfg, k, B, device)}.get(run.kind)
-        if make is None:
-            raise NotImplementedError(f"{run.kind!r} caches are not ported "
-                                      f"yet (ROADMAP.md)")
-        caches.append([make(None) for _ in range(run.n)] if n is None
-                      else make(n))
+                "ssm": lambda k: _ssm_cache(cfg, k, B, device),
+                "rwkv": lambda k: _rwkv_cache(cfg, k, B, device)}[run.kind]
+        caches.append(make(run.n) if tf.stacked(run, cfg)
+                      else [make(None) for _ in range(run.n)])
     return caches
 
 
-def _pad_attn_cache(cache: Dict, T: int) -> Dict:
-    """Pad a prefill KV cache out to serving capacity T (seq axis -3)."""
-    def pad(x):
-        cur = x.shape[-3]
-        return x if cur >= T else F.pad(x, (0, 0, 0, 0, 0, T - cur))
-    return {"k": pad(cache["k"]), "v": pad(cache["v"])}
+def _pad_attn_cache(cfg: ModelConfig, cache: Dict, T: int) -> Dict:
+    """Pad a prefill KV (or MLA latent) cache out to serving capacity T
+    along its sequence axis (-3 for K/V, -2 for the latents)."""
+    def pad(x, axis):
+        cur = x.shape[axis]
+        if cur >= T:
+            return x
+        widths = [0, 0] * (-axis - 1) + [0, T - cur]
+        return F.pad(x, widths)
+
+    if cfg.mla:
+        return {"c_kv": pad(cache["c_kv"], -2),
+                "k_rope": pad(cache["k_rope"], -2)}
+    return {"k": pad(cache["k"], -3), "v": pad(cache["v"], -3)}
 
 
 def pad_caches(cfg: ModelConfig, caches: List[Any], T: int) -> List[Any]:
     """Grow attention caches from prompt length to decode capacity T.
-    SSM states are fixed-size and pass through."""
+    SSM and RWKV states are fixed-size and pass through."""
     out: List[Any] = []
     for run, cache in zip(tf.build_runs(cfg), caches):
         if run.kind in ("attn", "attn_shared"):
             if isinstance(cache, list):
-                out.append([_pad_attn_cache(c, T) for c in cache])
+                out.append([_pad_attn_cache(cfg, c, T) for c in cache])
             else:
-                out.append(_pad_attn_cache(cache, T))
+                out.append(_pad_attn_cache(cfg, cache, T))
         else:
             out.append(cache)
     return out
@@ -98,36 +143,49 @@ class LM:
         self.cfg = cfg
 
     def init(self, generator: Optional[torch.Generator] = None,
-             device="cpu") -> Dict:
+             device="cuda") -> Dict:
         """Random parameters in ``param_dtype``, drawn from ``generator``
         on ``device`` (``"meta"`` allocates nothing)."""
         with torch.no_grad():
-            return tf.init_stack(self.cfg, Init(generator, device))
+            return tf.init_stack(self.cfg, Init(generator,
+                                                resolve_device(device)))
 
     def _positions(self, B: int, S: int, device) -> torch.Tensor:
+        """``[B, S]``, or ``[B, 3, S]`` under M-RoPE (text: one id in all
+        three channels)."""
+        base = torch.arange(S, dtype=torch.int32, device=device)
         if self.cfg.mrope:
-            raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md)")
-        return torch.arange(S, dtype=torch.int32,
-                            device=device)[None, :].expand(B, S)
+            return base[None, None, :].expand(B, 3, S)
+        return base[None, :].expand(B, S)
+
+    def _embed(self, params: Dict, tokens, embeds) -> torch.Tensor:
+        if embeds is None:
+            return embed_apply(params["embed"], tokens, self.cfg.dtype)
+        return embeds.to(self.cfg.dtype)
 
     @torch.no_grad()
-    def forward(self, params: Dict, tokens: torch.Tensor
+    def forward(self, params: Dict, tokens: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Whole-sequence forward -> (logits [B,S,V], aux_loss)."""
+        """Whole-sequence forward over ``tokens [B, S]`` or the VLM stub's
+        ``embeds [B, S, D]`` -> (logits [B,S,V], aux_loss)."""
         cfg = self.cfg
-        x = embed_apply(params["embed"], tokens, cfg.dtype)
+        x = self._embed(params, tokens, embeds)
         B, S = x.shape[:2]
-        h, aux, _ = tf.stack_full(cfg, params, x,
-                                  self._positions(B, S, x.device))
+        if positions is None:
+            positions = self._positions(B, S, x.device)
+        h, aux, _ = tf.stack_full(cfg, params, x, positions)
         return tf.lm_logits(cfg, params, h), aux
 
     @torch.no_grad()
-    def prefill(self, params: Dict, tokens: torch.Tensor
+    def prefill(self, params: Dict, tokens: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[Any]]:
         """-> (last-token logits [B,V], caches).  Attention caches come back
         sized to the prompt; pad them with :func:`pad_caches`."""
         cfg = self.cfg
-        x = embed_apply(params["embed"], tokens, cfg.dtype)
+        x = self._embed(params, tokens, embeds)
         B, S = x.shape[:2]
         h, _, caches = tf.stack_full(cfg, params, x,
                                      self._positions(B, S, x.device),
@@ -146,22 +204,86 @@ class LM:
         x, new_caches = tf.stack_decode(cfg, params, x, pos, caches)
         return tf.lm_logits(cfg, params, x)[:, 0], new_caches
 
-    def init_cache(self, B: int, T: int, device="cpu") -> List[Any]:
+    def init_cache(self, B: int, T: int, device="cuda") -> List[Any]:
         return init_cache(self.cfg, B, T, device)
 
 
-#: leaves the reference casts to the compute dtype at every use
+# ----------------------------------------------------------------------
+# encoder-decoder (whisper)
+# ----------------------------------------------------------------------
+
+class EncDecModel:
+    """Whisper: ``prefill(frames, tokens)`` encodes the frames once, keeps
+    every decoder layer's cross K/V and returns the prompt's caches;
+    ``decode_step`` extends them a token at a time."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device="cuda") -> Dict:
+        with torch.no_grad():
+            return encdec_mod.init_encdec(
+                self.cfg, Init(generator, resolve_device(device)))
+
+    @torch.no_grad()
+    def forward(self, params: Dict, frames: torch.Tensor,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (logits [B,S,V], a zero aux loss)."""
+        enc = encdec_mod.encode(self.cfg, params, frames)
+        logits, _ = encdec_mod.decode_full(self.cfg, params, tokens, enc)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+
+    @torch.no_grad()
+    def prefill(self, params: Dict, frames: torch.Tensor,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+        """-> (last-token logits [B,V], (self-attention caches, cross
+        K/V)); pad the caches with ``_pad_attn_cache``."""
+        enc = encdec_mod.encode(self.cfg, params, frames)
+        logits, state = encdec_mod.decode_full(self.cfg, params, tokens, enc,
+                                               collect_cache=True)
+        return logits[:, -1], state
+
+    @torch.no_grad()
+    def decode_step(self, params: Dict, token: torch.Tensor,
+                    pos: torch.Tensor, state: Any) -> Tuple[torch.Tensor, Any]:
+        caches, kv = state
+        logits, caches = encdec_mod.decode_step(
+            self.cfg, params, token[:, None], pos, caches, kv)
+        return logits[:, 0], (caches, kv)
+
+    def init_cache(self, B: int, T: int, device="cuda") -> Any:
+        cfg = self.cfg
+        device = resolve_device(device)
+        shape = (cfg.n_layers, B, cfg.encoder.n_frames, cfg.n_heads,
+                 cfg.head_dim)
+        return (_attn_cache(cfg, cfg.n_layers, B, T, device),
+                {"k": _zeros(shape, cfg.dtype, device),
+                 "v": _zeros(shape, cfg.dtype, device)})
+
+
+#: leaves the reference casts to the compute dtype at every use; the rest
+#: (norm scales and biases, the SSM's ``A_log``/``D``/``dt_bias``,
+#: RWKV's ``w0``, ``u`` and group-norm ``ln_scale``/``ln_bias``) are read
+#: in fp32 or as they are
 COMPUTE_LEAVES = frozenset({
     "table", "w", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "gate", "up",
-    "down", "in_proj", "out_proj", "conv_w", "conv_b"})
+    "down", "in_proj", "out_proj", "conv_w", "conv_b",
+    # MoE, MLA, the MTP head
+    "router", "wq_a", "wq_b", "wkv_a", "wk_b", "wv_b", "proj",
+    # RWKV
+    "mu", "mu_x", "mu_k", "mu_r", "mix_w1", "mix_w2", "decay_w1",
+    "decay_w2", "wr", "wg",
+    # whisper
+    "fc1", "b1", "fc2", "b2", "pos_embed"})
 
 
 def cast_for_compute(cfg: ModelConfig, params: Any, device=None,
                      key: Optional[str] = None) -> Any:
     """The parameter tree on ``device`` with every leaf that the reference
-    casts to ``cfg.dtype`` at each use cast once, here; norm scales and the
-    SSM's fp32 leaves keep ``param_dtype``.  The values each product sees
-    are the same."""
+    casts to ``cfg.dtype`` at each use cast once, here; the others keep
+    ``param_dtype``.  The values each product sees are the same."""
     if isinstance(params, dict):
         return {k: cast_for_compute(cfg, v, device, k)
                 for k, v in params.items()}
@@ -171,16 +293,8 @@ def cast_for_compute(cfg: ModelConfig, params: Any, device=None,
     return params.to(device=device, dtype=dtype)
 
 
-def build_model(cfg: ModelConfig) -> LM:
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models are not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 9)")
-    for what, unported in (("MoE", cfg.moe), ("MLA", cfg.mla),
-                           ("RWKV", cfg.rwkv), ("M-RoPE (VLM)", cfg.mrope)):
-        if unported:
-            raise NotImplementedError(f"{what} models are not ported yet "
-                                      f"(ROADMAP.md, Queue 1 item 9)")
-    return LM(cfg)
+def build_model(cfg: ModelConfig):
+    return EncDecModel(cfg) if cfg.is_encdec else LM(cfg)
 
 
 # ----------------------------------------------------------------------
@@ -204,6 +318,16 @@ def count_params_from_shapes(cfg: ModelConfig) -> int:
 
 
 def count_active_params(cfg: ModelConfig) -> int:
-    """Params activated per token; equal to the total for the ported
-    (dense, hybrid) families."""
-    return count_params_from_shapes(cfg)
+    """Params activated per token: MoE counts top_k (and the shared
+    experts) only, in every MoE layer and in the MTP block."""
+    total = count_params_from_shapes(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    n_moe_layers = sum(1 for i, k in enumerate(cfg.layer_kinds())
+                       if k == "attn" and i >= m.first_k_dense)
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    inactive = n_moe_layers * (m.n_experts - m.top_k) * per_expert
+    if cfg.mtp_depth > 0:
+        inactive += (m.n_experts - m.top_k) * per_expert   # the MTP block
+    return total - inactive

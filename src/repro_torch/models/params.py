@@ -40,8 +40,10 @@ def normal_init(init: Init, shape, dtype, scale: Optional[float] = None,
     fi = fan_in if fan_in is not None else (
         shape[-2] if len(shape) >= 2 else shape[-1])
     std = scale if scale is not None else 1.0 / math.sqrt(max(fi, 1))
-    return (init.randn(shape) * std).to(dtype)
+    # scaled in place: one fp32 temporary, not two (an expert stack of
+    # deepseek-v3 is 15 GB in fp32)
+    return init.randn(shape).mul_(std).to(dtype)
 
 
 def embed_init(init: Init, shape, dtype, **_) -> torch.Tensor:
-    return (init.randn(shape) * 0.02).to(dtype)
+    return init.randn(shape).mul_(0.02).to(dtype)

@@ -1,23 +1,28 @@
 """Decoder-stack assembly: block kinds, runs of layers, decode caches.
 
-Port of ``src/repro/models/transformer.py`` for the families the port
-serves: runs of ``"ssm"`` blocks, ``"attn"`` blocks of the dense variant,
-and ``"attn_shared"`` blocks (zamba2), whose one weight set is reused at
-every occurrence with one KV cache per occurrence.  A run's parameters are
-stacked ``[n, ...]`` as in the reference, and the reference's ``lax.scan``
-over layers becomes a Python loop over the stacked weights.  ``remat`` and
-the sharding constraints have no counterpart: the port serves on one card
-without gradients.  MoE and RWKV blocks are not ported yet.
+Port of ``src/repro/models/transformer.py``: runs of ``"attn"`` blocks
+(dense or MoE MLP; GQA or MLA attention), ``"ssm"`` blocks, ``"rwkv"``
+blocks, and ``"attn_shared"`` blocks (zamba2), whose one weight set is
+reused at every occurrence with one KV cache per occurrence.  A run's
+parameters are stacked ``[n, ...]`` as in the reference, and the
+reference's ``lax.scan`` over layers becomes a Python loop over the
+stacked weights.  ``remat``, ``compute_view`` and the sharding
+constraints have no counterpart: the port serves on one card without
+gradients.  ``init_stack`` builds deepseek-v3's ``mtp`` subtree, so
+weights carry across and parameter counts match; ``mtp_logits`` belongs
+to training and is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -29,6 +34,7 @@ from repro_torch.models.layers import (
     unembed_apply,
 )
 from repro_torch.models.params import Init, normal_init
+from repro_torch.utils import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,12 +71,6 @@ def stacked(run: Run, cfg: ModelConfig) -> bool:
     return cfg.scan_layers and run.n > 1
 
 
-def _unported(kind: str, variant: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block {kind!r}/{variant!r} is not ported yet (ROADMAP.md, "
-        f"Queue 1 item 9)")
-
-
 # ----------------------------------------------------------------------
 # per-layer block init / apply
 # ----------------------------------------------------------------------
@@ -79,15 +79,22 @@ def init_block(cfg: ModelConfig, kind: str, variant: str,
                init: Init) -> Dict:
     d = cfg.d_model
     dt = cfg.param_dtype
-    if kind in ("attn", "attn_shared") and variant != "moe" and not cfg.mla:
+    if kind in ("attn", "attn_shared"):
         return {"ln1": init_rms_norm(d, dt, init),
-                "attn": attn.init_attention(cfg, init),
+                "attn": (attn.init_mla(cfg, init) if cfg.mla
+                         else attn.init_attention(cfg, init)),
                 "ln2": init_rms_norm(d, dt, init),
-                "mlp": init_swiglu(d, cfg.d_ff, dt, init)}
+                "mlp": (moe_mod.init_moe(cfg, init) if variant == "moe"
+                        else init_swiglu(d, cfg.d_ff, dt, init))}
     if kind == "ssm":
         return {"ln1": init_rms_norm(d, dt, init),
                 "ssm": ssm_mod.init_ssm(cfg, init)}
-    raise _unported(kind, variant)
+    if kind == "rwkv":
+        return {"ln1": init_rms_norm(d, dt, init),
+                "time": rwkv_mod.init_rwkv_time(cfg, init),
+                "ln2": init_rms_norm(d, dt, init),
+                "channel": rwkv_mod.init_rwkv_channel(cfg, init)}
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def block_full(
@@ -101,18 +108,31 @@ def block_full(
 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Whole-sequence block application -> (x, new_state, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind in ("attn", "attn_shared") and variant != "moe" and not cfg.mla:
+    if kind in ("attn", "attn_shared"):
         h = rms_norm(x, p["ln1"]["scale"])
-        y, cache = attn.attention_full(cfg, p["attn"], h, positions)
+        full = attn.mla_full if cfg.mla else attn.attention_full
+        y, cache = full(cfg, p["attn"], h, positions)
         x = x + y
         h = rms_norm(x, p["ln2"]["scale"])
-        x = x + swiglu_apply(p["mlp"], h, x.dtype)
-        return x, cache, aux
+        if variant == "moe":
+            y, aux = moe_mod.moe_apply(cfg, p["mlp"], h, x.dtype)
+        else:
+            y = swiglu_apply(p["mlp"], h, x.dtype)
+        return x + y, cache, aux
     if kind == "ssm":
         h = rms_norm(x, p["ln1"]["scale"])
         y, new_state = ssm_mod.ssm_full(cfg, p["ssm"], h, state)
         return x + y, new_state, aux
-    raise _unported(kind, variant)
+    if kind == "rwkv":
+        h = rms_norm(x, p["ln1"]["scale"])
+        y, t_new = rwkv_mod.rwkv_time_full(
+            cfg, p["time"], h, None if state is None else state["time"])
+        x = x + y
+        h = rms_norm(x, p["ln2"]["scale"])
+        y, c_new = rwkv_mod.rwkv_channel_full(
+            cfg, p["channel"], h, None if state is None else state["channel"])
+        return x + y, {"time": t_new, "channel": c_new}, aux
+    raise ValueError(kind)
 
 
 def block_decode(
@@ -124,17 +144,30 @@ def block_decode(
     pos: torch.Tensor,                 # [B]
     state: Any,
 ) -> Tuple[torch.Tensor, Any]:
-    if kind in ("attn", "attn_shared") and variant != "moe" and not cfg.mla:
+    if kind in ("attn", "attn_shared"):
         h = rms_norm(x, p["ln1"]["scale"])
-        y, cache = attn.attention_decode(cfg, p["attn"], h, state, pos)
+        decode = attn.mla_decode if cfg.mla else attn.attention_decode
+        y, cache = decode(cfg, p["attn"], h, state, pos)
         x = x + y
         h = rms_norm(x, p["ln2"]["scale"])
-        return x + swiglu_apply(p["mlp"], h, x.dtype), cache
+        if variant == "moe":
+            y, _ = moe_mod.moe_apply(cfg, p["mlp"], h, x.dtype)
+        else:
+            y = swiglu_apply(p["mlp"], h, x.dtype)
+        return x + y, cache
     if kind == "ssm":
         h = rms_norm(x, p["ln1"]["scale"])
         y, new_state = ssm_mod.ssm_decode(cfg, p["ssm"], h, state)
         return x + y, new_state
-    raise _unported(kind, variant)
+    if kind == "rwkv":
+        h = rms_norm(x, p["ln1"]["scale"])
+        y, t_new = rwkv_mod.rwkv_time_decode(cfg, p["time"], h, state["time"])
+        x = x + y
+        h = rms_norm(x, p["ln2"]["scale"])
+        y, c_new = rwkv_mod.rwkv_channel_full(cfg, p["channel"], h,
+                                              state["channel"])
+        return x + y, {"time": t_new, "channel": c_new}
+    raise ValueError(kind)
 
 
 # ----------------------------------------------------------------------
@@ -150,6 +183,35 @@ def _stack(trees: List[Dict]) -> Dict:
 def _layer(tree: Dict, i: int) -> Dict:
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
+
+
+def _put(dst: Dict, src: Dict, i: int) -> None:
+    """Write the per-layer tree ``src`` into slot ``i`` of the stacked tree
+    ``dst`` (nested dicts, as RWKV's state is); a leaf that is already
+    that slot (a cache updated in place) is left alone."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _put(dst[k], v, i)
+        elif v.data_ptr() != dst[k][i].data_ptr():
+            dst[k][i].copy_(v)
+
+
+def stack_layers(n: int, make: Callable[[], Dict]) -> Dict:
+    """``n`` layers of ``make()`` stacked ``[n, ...]``: each stacked leaf is
+    allocated once and filled layer by layer, so init holds one layer's
+    tensors beside the stack, not every layer twice (a single layer is a
+    view of itself)."""
+    first = make()
+    if n == 1:
+        return tree_map(lambda t: t[None], first)
+    out = tree_map(lambda t: torch.empty((n,) + tuple(t.shape),
+                                         dtype=t.dtype, device=t.device),
+                   first)
+    _put(out, first, 0)
+    del first
+    for i in range(1, n):
+        _put(out, make(), i)
+    return out
 
 
 def init_stack(cfg: ModelConfig, init: Init) -> Dict:
@@ -170,12 +232,17 @@ def init_stack(cfg: ModelConfig, init: Init) -> Dict:
         if run.kind == "attn_shared":
             params["runs"].append({})      # weights live in shared_block
             continue
-        params["runs"].append(_stack([
-            init_block(cfg, run.kind, run.variant, init)
-            for _ in range(run.n)]))
+        params["runs"].append(stack_layers(
+            run.n, lambda: init_block(cfg, run.kind, run.variant, init)))
     if cfg.mtp_depth > 0:
-        raise NotImplementedError("multi-token-prediction heads are not "
-                                  "ported yet (ROADMAP.md)")
+        params["mtp"] = {
+            "proj": normal_init(init, (2 * cfg.d_model, cfg.d_model),
+                                cfg.param_dtype),
+            "block": init_block(cfg, "attn",
+                                "moe" if cfg.moe is not None else "dense",
+                                init),
+            "norm": init_rms_norm(cfg.d_model, cfg.param_dtype, init),
+        }
     return params
 
 
@@ -236,10 +303,7 @@ def stack_decode(
             for i in range(run.n):
                 x, c = block_decode(cfg, run.kind, run.variant,
                                     _layer(rp, i), x, pos, _layer(cache, i))
-                for k, v in c.items():
-                    dst = cache[k][i]
-                    if v.data_ptr() != dst.data_ptr():
-                        dst.copy_(v)
+                _put(cache, c, i)
             new_caches.append(cache)
         else:
             outs = []

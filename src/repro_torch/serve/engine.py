@@ -19,7 +19,12 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import build_model, cast_for_compute, pad_caches
+from repro_torch.models.model import (
+    build_model,
+    cast_for_compute,
+    pad_caches,
+    resolve_device,
+)
 
 
 def make_serve_step(cfg: ModelConfig, model=None) -> Callable:
@@ -57,11 +62,7 @@ def _sample(logits: torch.Tensor, temperature: float,
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: Any, capacity: int,
                  batch_size: int, device="cuda"):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("ServeEngine runs on CUDA and none is "
-                               "available; pass device='cpu' to serve on "
-                               "the CPU")
+        device = resolve_device(device)
         self.cfg = cfg
         self.device = device
         self.model = build_model(cfg)

@@ -1,6 +1,7 @@
 """The port's LM serving path (``repro_torch.models``, ``repro_torch.serve``)
-against the reference's, on zamba2-1.2b's smoke config and the
-``zamba_hybrid`` config of ``tests/test_models.py``, both fp32.
+against the reference's, on zamba2-1.2b's and qwen2-vl-7b's smoke configs
+and the ``zamba_hybrid``, ``swa_moe``, ``mla_moe`` and ``rwkv`` configs of
+``tests/test_models.py``, all fp32.
 
 The reference's weights cross over with ``convert.lm_params_from_jax``, so
 both packages compute the same function; on the CPU the port's attention
@@ -18,13 +19,13 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import qwen2_vl_7b as ref_qwen2_vl  # noqa: E402
 from repro.configs import zamba2_1p2b as ref_zamba  # noqa: E402
 from repro.models.attention import causal_mask as ref_mask  # noqa: E402
 from repro.models.model import build_model as ref_build  # noqa: E402
 from repro.models.model import count_params_from_shapes  # noqa: E402
 from repro.models.model import pad_caches as ref_pad  # noqa: E402
 from repro.serve.engine import ServeEngine as RefEngine  # noqa: E402
-from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs import zamba2_1p2b  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.models.attention import causal_mask  # noqa: E402
@@ -38,14 +39,28 @@ DECODE_TOL = 2e-3
 B, S = 2, 16
 
 
-@pytest.fixture(scope="module", params=["zamba2_smoke", "zamba_hybrid"])
+#: the pair fixture's configs and the cache leaves each one's caches hold
+PAIRS = {
+    "zamba2_smoke": (ref_zamba.smoke, {"k", "v", "conv", "ssm"}),
+    "zamba_hybrid": (lambda: CONFIGS["zamba_hybrid"],
+                     {"k", "v", "conv", "ssm"}),
+    "swa_moe": (lambda: CONFIGS["swa_moe"], {"k", "v"}),
+    "mla_moe": (lambda: CONFIGS["mla_moe"], {"c_kv", "k_rope"}),
+    "rwkv": (lambda: CONFIGS["rwkv"], {"S", "x_prev"}),
+    "qwen2_vl_smoke": (ref_qwen2_vl.smoke, {"k", "v"}),
+}
+
+CACHE_LEAVES = {make().name: leaves for make, leaves in PAIRS.values()}
+
+
+@pytest.fixture(scope="module", params=list(PAIRS))
 def pair(request):
-    ref_cfg = (ref_zamba.smoke() if request.param == "zamba2_smoke"
-               else CONFIGS["zamba_hybrid"])
+    ref_cfg = PAIRS[request.param][0]()
     cfg = port_model_config(ref_cfg)
     ref_model = ref_build(ref_cfg)
     ref_params = ref_model.init(jax.random.key(0))
-    params = lm_params_from_jax(cfg, jax.tree.map(np.asarray, ref_params))
+    params = lm_params_from_jax(cfg, jax.tree.map(np.asarray, ref_params),
+                                device="cpu")
     tokens = np.random.default_rng(1).integers(
         0, cfg.vocab, (B, S)).astype(np.int32)
     return (ref_cfg, ref_model, ref_params), (cfg, build_model(cfg), params), \
@@ -83,7 +98,7 @@ def test_prefill_logits_and_every_cache_leaf(pair):
     want, got = by_path(want_caches), by_path(got_caches)
     assert list(got) == list(want)
     kinds = {p.rsplit("/", 1)[-1] for p in want}
-    assert kinds == {"k", "v", "conv", "ssm"}
+    assert kinds == CACHE_LEAVES[rcfg.name]
     for path in want:
         assert got[path].shape == want[path].shape, path
         close(got[path], want[path], PREFILL_TOL, path)
@@ -122,7 +137,8 @@ def test_greedy_generate_matches_reference():
     rcfg = ref_zamba.smoke()
     cfg = port_model_config(rcfg)
     rparams = ref_build(rcfg).init(jax.random.key(0))
-    params = lm_params_from_jax(cfg, jax.tree.map(np.asarray, rparams))
+    params = lm_params_from_jax(cfg, jax.tree.map(np.asarray, rparams),
+                                device="cpu")
     prompts = np.random.default_rng(2).integers(
         0, cfg.vocab, (4, 12)).astype(np.int32)
     want = RefEngine(rcfg, rparams, capacity=21, batch_size=4).generate(
@@ -136,7 +152,7 @@ def test_greedy_generate_matches_reference():
 def test_temperature_sampling_is_seeded():
     cfg = zamba2_1p2b.smoke()
     model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
     engine = ServeEngine(cfg, params, capacity=12, batch_size=2,
                          device="cpu")
     prompts = np.arange(16, dtype=np.int32).reshape(2, 8)
@@ -156,7 +172,8 @@ def test_ssm_full_from_a_state_matches_reference(L):
     rcfg = ref_zamba.smoke()
     cfg = port_model_config(rcfg)
     rparams = ref_build(rcfg).init(jax.random.key(0))
-    params = lm_params_from_jax(cfg, jax.tree.map(np.asarray, rparams))
+    params = lm_params_from_jax(cfg, jax.tree.map(np.asarray, rparams),
+                                device="cpu")
     rp = {k: np.asarray(v[0]) for k, v in rparams["runs"][0]["ssm"].items()}
     p = {k: v[0] for k, v in params["runs"][0]["ssm"].items()}
     d_inner, H, N = ssm_dims(cfg)
@@ -191,7 +208,8 @@ def test_param_count_of_full_config_matches_reference():
 
 def test_engine_needs_cuda_unless_asked_for_cpu():
     cfg = zamba2_1p2b.smoke()
-    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                   device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the engine would run")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -205,16 +223,6 @@ def test_engine_needs_cuda_unless_asked_for_cpu():
     assert out.tokens.shape == (2, 3)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if a not in ("zamba2_1p2b", "llama3p2_1b",
-                                               "llama3_405b", "qwen2p5_14b",
-                                               "qwen3_8b")])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config(arch, reduced=True)).init(
-            torch.Generator().manual_seed(0))
-
-
 @pytest.mark.parametrize("window,offset", [(None, 0), (4, 0), (None, 3)])
 def test_causal_mask_matches_reference(window, offset):
     np.testing.assert_array_equal(
@@ -225,7 +233,7 @@ def test_causal_mask_matches_reference(window, offset):
 def test_init_cache_matches_reference(pair):
     (rcfg, rmodel, _), (cfg, model, _), _ = pair
     want = by_path(rmodel.init_cache(3, 20))
-    got = model.init_cache(3, 20)
+    got = model.init_cache(3, 20, device="cpu")
     flat = by_path(got)
     assert list(flat) == list(want)
     for path in want:
