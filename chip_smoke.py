@@ -72,6 +72,22 @@
    trace of one prefill, finite logits; for mixtral, qwen2-vl and whisper
    also 2 layers of full width in fp32, one request, logits at every
    prompt position on the kernels against ``plain_kernels()``.
+   (j) Then trains zamba2-1.2b through the port's training path, where
+   K2 and K3 run as the forwards of autograd Functions whose backward is
+   the plain version recomputed: (j1) at full width and 6 layers, one
+   2048-token sequence, ``lm_loss`` and every gradient on the kernels
+   against ``plain_kernels()`` in fp32 (worst leaf within 1e-3 of its
+   scale) and in bf16 (each leaf's distance to the fp32 gradients
+   against the plain bf16 run's: within 1.10x on the mean over leaves,
+   1.25x on the worst), every leaf's gradient nonzero (q/k/v, each
+   layer's in_proj); (j2) at full width and depth, fp32 params, bf16 compute,
+   remat "dots", 4 AdamW steps of 8 x 2048 tokens in 2 microbatches
+   through ``Trainer`` over ``GridSession.token_dataset``: per step the
+   loss, grad norm, seconds, tokens/s, K2 and K3 launches by variant
+   (12 and 128 wgmma) and peak memory, the loss on step 0's batch
+   before and after, and a profiler breakdown of one more step with the
+   plain backwards' device time; (j3) ``Trainer`` resuming from its
+   checkpoints on the card with every tensor equal.
 7. Times K2's two variants, SDPA and the plain version in turns at the
    serving call (and the simt kernel, SDPA and the plain version in fp32,
    the simt kernel's serving dtype) and at qwen3-8b's D=128 GQA shape,
@@ -89,9 +105,11 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -119,8 +137,10 @@ from repro_torch.core.stats import (  # noqa: E402
 )
 from repro_torch.core.table import TensorTable  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
+    ColocatedTokenDataset,
     image_population_table,
     population_covariates,
+    synthetic_token_table,
 )
 from repro_torch.kernels.fused_fold import kernel as K  # noqa: E402
 from repro_torch.kernels.fused_fold import ops as K_ops  # noqa: E402
@@ -131,16 +151,17 @@ from repro_torch.kernels.fused_fold.ops import (  # noqa: E402
 )
 from repro_torch.kernels.fused_fold.ref import fused_fold_numpy  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as K2  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as K2_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref,
 )
 from repro_torch.kernels.ssm_scan import kernel as K3  # noqa: E402
+from repro_torch.kernels.ssm_scan import ops as K3_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import (  # noqa: E402
     ssd_chunked_ref,
     ssd_scan_sequential,
 )
 from repro_torch.configs import get_config, zamba2_1p2b  # noqa: E402
-from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     _pad_attn_cache,
@@ -149,8 +170,21 @@ from repro_torch.models.model import (  # noqa: E402
     pad_caches,
 )
 from repro_torch.models.params import Init  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.optim.schedule import cosine_schedule  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
-from repro_torch.utils import tree_leaves  # noqa: E402
+from repro_torch.train.loss import lm_loss  # noqa: E402
+from repro_torch.train.step import (  # noqa: E402
+    TrainStepConfig,
+    make_train_state,
+    make_train_step,
+)
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.utils import (  # noqa: E402
+    tree_leaves,
+    tree_leaves_with_path,
+    tree_map,
+)
 
 VOLUME = (91, 109, 91)          # MNI152 2 mm grid
 SCALE = 1.0                     # 4,490 subjects (the paper's Table 3)
@@ -1413,20 +1447,24 @@ F32_GREEDY_MIN = 0.98
 BF16_MEAN_RATIO, BF16_MAX_RATIO = 1.10, 1.25
 
 
+def plain_ssd(x, a, Bm, Cm, chunk, init_state=None):
+    return ssd_chunked_ref(x, a, Bm, Cm, min(chunk, x.shape[1]), init_state)
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """The model's two kernel calls pointed at the kernels' plain versions
-    (``attention_ref``; ``ssd_chunked_ref`` from the given state); undone
-    on exit.  The wrappers are never reached while it is active."""
-    saved = attention_mod.flash_attention, ssm_mod.ssd_scan
-    attention_mod.flash_attention = attention_ref
-    ssm_mod.ssd_scan = (
-        lambda x, a, Bm, Cm, chunk, init_state=None: ssd_chunked_ref(
-            x, a, Bm, Cm, min(chunk, x.shape[1]), init_state))
+    """The forward hooks of the model's two kernel Functions
+    (``K2_ops.FORWARD``, ``K3_ops.FORWARD``) pointed at the kernels' plain
+    versions (``attention_ref``; ``ssd_chunked_ref`` from the given
+    state); undone on exit.  The wrappers are never reached while it is
+    active, and the Functions' backwards (the plain versions recomputed)
+    are those of the kernel runs."""
+    saved = K2_ops.FORWARD, K3_ops.FORWARD
+    K2_ops.FORWARD, K3_ops.FORWARD = attention_ref, plain_ssd
     try:
         yield
     finally:
-        attention_mod.flash_attention, ssm_mod.ssd_scan = saved
+        K2_ops.FORWARD, K3_ops.FORWARD = saved
 
 
 def teacher_forced(model, cfg, params, capacity, prompts, tokens):
@@ -1448,18 +1486,31 @@ def gaps(a, b):
     return float(d.max()), float(d.mean())
 
 
+def profiled(fn):
+    """Run ``fn`` under the profiler -> (host seconds, the profile)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall = timed(fn)
+    return wall, prof
+
+
 def device_breakdown(fn):
     """Run ``fn`` under the profiler -> (host seconds, {category: device
     seconds}, {category: kernel count}, the five longest kernel names with
     their seconds and counts).  cuBLAS's Hopper GEMMs are named
     ``nvjet_*`` or ``sm90_xmma_*``."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        _, wall = timed(fn)
+    return breakdown(*profiled(fn))
+
+
+def breakdown(wall, prof):
+    """:func:`device_breakdown`'s result from a profile."""
     secs, calls, by_name = {}, {}, {}
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function range also shows as a device-side annotation
+        # spanning its kernels: not a kernel of its own
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         name = evt.name.lower()
         if "flash_wgmma_kernel" in name:
@@ -1847,6 +1898,318 @@ def report_families(fm, card):
                 f" K2 {c['variants']}")
 
 
+# ----------------------------------------------------------------------
+# phase (j): training zamba2-1.2b through the port's trainer
+# ----------------------------------------------------------------------
+
+#: (j2): global batch and sequence (zamba2's serving traffic), microbatches
+#: and steps; (j1) runs one sequence of the same length
+TRAIN_B, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 2, 4
+#: (j1) fp32: the worst leaf's max|kernel grad - plain grad| over its
+#: max|plain grad|.  (j1) bf16: each leaf's distance to the fp32 plain
+#: gradients, so measured, is held to the bf16 plain run's (the noise
+#: floor) as serving's logits are: the mean over leaves within
+#: BF16_MEAN_RATIO of the plain run's mean, the worst leaf within
+#: BF16_MAX_RATIO of its worst
+GRAD_F32_TOL = 1e-3
+#: a K2 output or K3 output cut off from autograd would leave these with a
+#: zero gradient
+DETACH_LEAVES = ("/shared_block/attn/wq", "/shared_block/attn/wk",
+                 "/shared_block/attn/wv")
+
+
+def leaf_paths(tree):
+    """``{path: tensor}`` over a nested dict/list tree, with paths such as
+    ``/runs[0]/ssm/in_proj``."""
+    return {"".join(f"[{k}]" if isinstance(k, int) else f"/{k}"
+                    for k in path): t
+            for path, t in tree_leaves_with_path(tree)}
+
+
+def launches_per_microbatch(cfg):
+    """(K2, K3) launches of one forward and backward: the remat recompute
+    runs each block of a layer run again, never the shared attention block
+    (``stack_full`` leaves it outside remat, as the reference does)."""
+    kinds = cfg.layer_kinds()
+    again = 2 if cfg.remat_policy != "none" else 1
+    return (kinds.count("attn_shared") + again * kinds.count("attn"),
+            again * kinds.count("ssm"))
+
+
+def loss_and_grads(cfg, params, tokens):
+    """``lm_loss`` and every leaf's fp32 gradient by path, by autograd."""
+    leaves = leaf_paths(params)
+    for p in leaves.values():
+        p.requires_grad_(True)
+        p.grad = None
+    loss, _ = lm_loss(cfg, build_model(cfg), params, tokens)
+    loss.backward()
+    grads = {k: (torch.zeros(p.shape, dtype=F32, device=p.device)
+                 if p.grad is None else p.grad.float())
+             for k, p in leaves.items()}
+    for p in leaves.values():
+        p.grad = None
+        p.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def leaf_gaps(grads, ref):
+    """(mean over leaves of max|g - ref| / max|ref|, the largest, its
+    leaf)."""
+    gaps = {k: float((grads[k] - r).abs().max() / r.abs().max())
+            for k, r in ref.items()}
+    k = max(gaps, key=gaps.get)
+    return sum(gaps.values()) / len(gaps), gaps[k], k
+
+
+def kernel_counts():
+    return (dict(K2.flash_attention_cuda.by_variant),
+            dict(K3.ssd_scan_cuda.by_variant))
+
+
+def reset_kernel_counts():
+    K2.reset_counts()
+    K3.reset_counts()
+
+
+def grad_check():
+    """(j1): zamba2-1.2b at full width and 6 layers (five Mamba2 layers
+    and one shared attention block), fp32 params, one sequence of
+    TRAIN_SEQ tokens: ``lm_loss`` and every gradient on the kernels and
+    under ``plain_kernels()``, in fp32 (simt variants) and bf16 compute
+    (wgmma variants)."""
+    cfg32 = dataclasses.replace(zamba2_1p2b.full(), n_layers=6, dtype=F32)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    params = build_model(cfg32).init(gen, DEV)
+    tokens = torch.randint(0, cfg32.vocab, (1, TRAIN_SEQ + 1),
+                           generator=gen, device=DEV)
+    k2, k3 = launches_per_microbatch(cfg32)
+    out = {"params": sum(p.numel() for p in leaf_paths(params).values()),
+           "k2": k2, "k3": k3}
+    for tag, dt, var in (("f32", F32, "simt"), ("bf16", BF16, "wgmma")):
+        cfg = dataclasses.replace(cfg32, dtype=dt)
+        reset_kernel_counts()
+        loss_k, g_k = loss_and_grads(cfg, params, tokens)
+        counts = kernel_counts()
+        other = {"simt": "wgmma", "wgmma": "simt"}[var]
+        check(counts == ({var: k2, other: 0}, {var: k3, other: 0}),
+              f"(j1) {tag} launches {counts}, want K2 {k2} and K3 {k3} "
+              f"{var}")
+        with plain_kernels():
+            loss_p, g_p = loss_and_grads(cfg, params, tokens)
+        check(kernel_counts() == counts, "(j1) plain run launched a kernel")
+        zero = [k for k, g in g_k.items() if not bool(g.abs().max() > 0)]
+        check(not zero, f"(j1) {tag}: zero gradient for {zero}")
+        in_proj = [k for k in g_k if k.endswith("/ssm/in_proj")]
+        check(all(bool(g_k[k][i].abs().max() > 0) for k in in_proj
+                  for i in range(g_k[k].shape[0])),
+              f"(j1) {tag}: a layer's in_proj gradient is zero")
+        check(all(k in g_k for k in DETACH_LEAVES) and in_proj,
+              "(j1) q/k/v or in_proj leaves missing")
+        check(all(bool(torch.isfinite(g).all()) for g in g_k.values()),
+              f"(j1) {tag}: non-finite gradients")
+        out[tag] = {"loss_kernel": loss_k, "loss_plain": loss_p,
+                    "counts": counts, "leaves": len(g_k),
+                    "kern_vs_plain": leaf_gaps(g_k, g_p)}
+        if tag == "f32":
+            ref32 = g_p
+            check(out[tag]["kern_vs_plain"][1] <= GRAD_F32_TOL,
+                  f"(j1) fp32 kernel vs plain gradients "
+                  f"{out[tag]['kern_vs_plain']}")
+        else:
+            (kmean, km, _) = out[tag]["kern_to_f32"] = leaf_gaps(g_k, ref32)
+            (pmean, pm, _) = out[tag]["plain_to_f32"] = leaf_gaps(g_p, ref32)
+            check(kmean <= BF16_MEAN_RATIO * pmean
+                  and km <= BF16_MAX_RATIO * pm,
+                  f"(j1) bf16 kernel gradients further from fp32 than the "
+                  f"plain bf16 run: mean {kmean:.3g} vs {pmean:.3g}, max "
+                  f"{km:.3g} vs {pm:.3g}")
+        del g_k, g_p
+    del params, ref32
+    free_card()
+    return out
+
+
+def range_seconds(prof, name):
+    """Device seconds of the kernels launched inside profiler ranges
+    named ``name``, and the number of such ranges."""
+    evts = [e for e in prof.events() if e.name == name
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    return sum(e.device_time_total for e in evts) / 1e6, len(evts)
+
+
+def train_path():
+    """(j2): zamba2-1.2b at full width and depth, fp32 params, bf16
+    compute, remat "dots", through ``Trainer`` over a ``GridSession``'s
+    token dataset: TRAIN_STEPS AdamW steps of TRAIN_B x TRAIN_SEQ tokens
+    in TRAIN_MICRO microbatches; then one more step under the profiler."""
+    cfg = zamba2_1p2b.full()
+    model = build_model(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state = make_train_state(cfg, model, gen, DEV)
+    table = synthetic_token_table(n_rows=256, seq_len=TRAIN_SEQ + 1,
+                                  vocab=cfg.vocab)
+    session = GridSession(table, devices=[DEV], payload_family="tok",
+                          payload_qualifier="ids")
+    ds = session.token_dataset(TRAIN_B)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "params": cfg.param_count(),
+           "layers": cfg.n_layers, "steps": []}
+    # no warmup: linear_warmup_cosine scales step 0 by s / warmup = 0 for
+    # any warmup, which would leave the first update empty
+    step = make_train_step(
+        cfg, model, AdamWConfig(lr=3e-4),
+        TrainStepConfig(num_microbatches=TRAIN_MICRO,
+                        schedule=lambda s: cosine_schedule(s, TRAIN_STEPS)))
+    batch0 = ds.next_batch(0)
+    check(batch0.shape == (TRAIN_B, TRAIN_SEQ + 1)
+          and batch0.dtype == torch.int32
+          and batch0.device.type == torch.device(DEV).type,
+          f"token batch {tuple(batch0.shape)} {batch0.dtype} "
+          f"{batch0.device}")
+    with torch.no_grad():
+        out["loss0_before"] = float(lm_loss(cfg, model, params, batch0)[0])
+    snap = [p.flatten()[:4096].clone() for p in tree_leaves(params)]
+    k2, k3 = launches_per_microbatch(cfg)
+    out["want"] = ({"wgmma": k2 * TRAIN_MICRO, "simt": 0},
+                   {"wgmma": k3 * TRAIN_MICRO, "simt": 0})
+
+    def counted(p, o, batch, i):
+        reset_kernel_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = step(p, o, batch, i)
+        torch.cuda.synchronize()
+        rec = {"s": time.perf_counter() - t, "counts": kernel_counts(),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if i == 0:
+            rec["moved"] = sum(not torch.equal(a, b.flatten()[:4096])
+                               for a, b in zip(snap, tree_leaves(res[0])))
+        out["steps"].append(rec)
+        return res
+
+    trainer = Trainer(counted, ds, TrainerConfig(
+        total_steps=TRAIN_STEPS, log_every=1,
+        checkpoint_every=TRAIN_STEPS + 1))
+    params, opt_state, hist = trainer.run(params, opt_state)
+    out["history"] = hist
+    with torch.no_grad():
+        out["loss0_after"] = float(lm_loss(cfg, model, params, batch0)[0])
+    check(len(hist) == TRAIN_STEPS and all(
+        np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+        for h in hist), f"(j2) non-finite loss or grad norm: {hist}")
+    check(out["steps"][0]["moved"] == len(snap),
+          f"(j2) {len(snap) - out['steps'][0]['moved']} of {len(snap)} "
+          f"leaves unchanged by step 1")
+    check(all(r["counts"] == out["want"] for r in out["steps"]),
+          f"(j2) launches per step "
+          f"{[r['counts'] for r in out['steps']]}, want {out['want']}")
+    check(out["loss0_after"] < out["loss0_before"],
+          f"(j2) step 0's batch: loss {out['loss0_before']:.4f} before, "
+          f"{out['loss0_after']:.4f} after {TRAIN_STEPS} steps")
+    batch = ds.next_batch(TRAIN_STEPS)
+    reset_kernel_counts()
+    wall, prof = profiled(lambda: step(params, opt_state, batch,
+                                       TRAIN_STEPS))
+    out["trace"] = breakdown(wall, prof)
+    out["trace_counts"] = kernel_counts()
+    out["bwd"] = {"K2": range_seconds(prof, K2_ops.BACKWARD_RANGE),
+                  "K3": range_seconds(prof, K3_ops.BACKWARD_RANGE)}
+    del prof, params, opt_state, session, ds, batch, batch0
+    free_card()
+    return out
+
+
+def resume_check():
+    """(j3): ``Trainer`` with a checkpoint directory on zamba2's smoke
+    config on the card: 6 steps saved every 3; a second ``Trainer`` must
+    resume at step 6 with tensors on the card equal to the first run's."""
+    cfg = zamba2_1p2b.smoke()
+    model = build_model(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    init = make_train_state(cfg, model, gen, DEV)
+    ds = ColocatedTokenDataset(
+        synthetic_token_table(n_rows=32, seq_len=17, vocab=cfg.vocab),
+        [DEV], global_batch=4)
+    step = make_train_step(cfg, model, AdamWConfig(lr=1e-3))
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainerConfig(total_steps=6, log_every=100, checkpoint_every=3,
+                           checkpoint_dir=d)
+        fresh = lambda: [tree_map(torch.clone, t) for t in init]  # noqa: E731
+        p1, o1, _ = Trainer(step, ds, tc).run(*fresh())
+        saved = sorted(os.listdir(d))
+        p2, o2, hist = Trainer(step, ds, tc).run(*fresh())
+    a, b = tree_leaves((p1, o1)), tree_leaves((p2, o2))
+    check(saved == ["step_000000003", "step_000000006"],
+          f"(j3) checkpoints {saved}")
+    check(hist == [] and int(o2["step"]) == 6,
+          f"(j3) resumed at step {int(o2['step'])}, ran {len(hist)} steps")
+    check(all(t.device.type == torch.device(DEV).type for t in b),
+          "(j3) restored tensors not on the card")
+    check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+          "(j3) resumed state differs from the first run's")
+    return {"saved": saved, "leaves": len(b)}
+
+
+def report_training(gc_out, tr, rs, card, secs):
+    log(f"phase (j1) on {card}: zamba2-1.2b at full width, 6 layers (5 "
+        f"Mamba2 + the shared attention block), "
+        f"{gc_out['params'] / 1e6:.1f} M fp32 params, 1 x {TRAIN_SEQ} "
+        f"tokens, lm_loss and all gradients, kernels vs plain_kernels(): "
+        + "; ".join(
+            f"{tag} compute: loss {r['loss_kernel']:.6f} vs "
+            f"{r['loss_plain']:.6f}, max|Δg|/max|g_plain| mean over leaves "
+            f"{r['kern_vs_plain'][0]:.3g}, worst "
+            f"{r['kern_vs_plain'][1]:.3g} ({r['kern_vs_plain'][2]}) over "
+            f"{r['leaves']} leaves, launches K2 {r['counts'][0]} K3 "
+            f"{r['counts'][1]}"
+            for tag, r in ((t, gc_out[t]) for t in ("f32", "bf16")))
+        + "; bf16 distance to the fp32 plain gradients, mean over leaves / "
+        "worst: kernels {:.3g} / {:.3g} ({}), plain {:.3g} / {:.3g} ({}) "
+        "(ratios {:.3f} / {:.3f}, at most {} / {})".format(
+            *gc_out['bf16']['kern_to_f32'], *gc_out['bf16']['plain_to_f32'],
+            gc_out['bf16']['kern_to_f32'][0]
+            / gc_out['bf16']['plain_to_f32'][0],
+            gc_out['bf16']['kern_to_f32'][1]
+            / gc_out['bf16']['plain_to_f32'][1],
+            BF16_MEAN_RATIO, BF16_MAX_RATIO)
+        + f"; fp32 tolerance {GRAD_F32_TOL}; every leaf's "
+        f"gradient nonzero (q/k/v and each layer's in_proj)")
+    log(f"phase (j2) on {card}: zamba2-1.2b training, {tr['layers']} layers,"
+        f" {tr['params'] / 1e9:.3f} B fp32 params, bf16 compute, remat "
+        f"dots, AdamW lr 3e-4 on a cosine over {TRAIN_STEPS} steps; global "
+        f"batch "
+        f"{TRAIN_B} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches from "
+        f"GridSession.token_dataset; init {tr['init_s']:.2f} s; step 0's "
+        f"batch loss {tr['loss0_before']:.4f} before, "
+        f"{tr['loss0_after']:.4f} after {TRAIN_STEPS} steps")
+    for h, r in zip(tr["history"], tr["steps"]):
+        log(f"  step {h['step']}: loss {h['loss']:.4f}, grad_norm "
+            f"{h['grad_norm']:.4f}, lr_scale {h['lr_scale']:.3f}, "
+            f"{r['s']:.3f} s, {TRAIN_B * TRAIN_SEQ / r['s']:.0f} tokens/s, "
+            f"K2 {r['counts'][0]}, K3 {r['counts'][1]}, peak "
+            f"{r['peak_gb']:.1f} GB")
+    w, secs_by, calls, top = tr["trace"]
+    busy = sum(secs_by.values())
+    log(f"  traced step on {card}: wall {w:.3f} s, device busy {busy:.3f} s "
+        f"(idle share {1 - busy / w:.3f}): " + ", ".join(
+            f"{k} {secs_by[k]:.4f} s/{calls[k]} kernels"
+            for k in sorted(secs_by, key=lambda k: -secs_by[k]))
+        + f"; of which the plain backwards: K2 {tr['bwd']['K2'][0]:.4f} s "
+        f"in {tr['bwd']['K2'][1]} calls, K3 {tr['bwd']['K3'][0]:.4f} s in "
+        f"{tr['bwd']['K3'][1]} calls; launches {tr['trace_counts']}")
+    for evt_name, (sec, n) in top:
+        log(f"    {sec:.4f} s in {n} calls: {evt_name[:90]}")
+    log(f"phase (j3) on {card}: zamba2 smoke config, 6 steps, checkpoints "
+        f"{rs['saved']}; a second Trainer resumed at step 6 with "
+        f"{rs['leaves']} leaves on the card, equal to the first run's")
+    log(f"phase (j) training {secs:.1f} s")
+
+
 #: K2's timed calls: zamba2-1.2b's prefill attention, and qwen3-8b's
 #: heads (32 query heads over 8 KV heads of 128) at the same batch and
 #: prompt; (B, H, Hkv, S, D), bf16, causal, as [B, S, H, D] views
@@ -2230,6 +2593,11 @@ def main() -> int:
     fm = families_phase()
     report_families(fm, card)
     log(f"phase (i) families {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gc_out = grad_check()
+    tr = train_path()
+    rs = resume_check()
+    report_training(gc_out, tr, rs, card, time.perf_counter() - t0)
 
     k2m = {tag: measure_k2(gen, *shape, f32=tag == "zamba2")
            for tag, shape in K2_TIMED.items()}

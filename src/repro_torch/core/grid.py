@@ -5,8 +5,8 @@ becomes the owner-device list ``devices`` (default: one CUDA device; it may
 repeat one physical device, so ``["cuda:0"] * 4`` gives four logical
 owners).  Blocks commit to their owner with a copy from pinned host memory
 (:meth:`GridSession._put_block`), and CSE-eligible folds run on the CUDA
-fused fold kernel (``fold_impl="kernel"``).  ``token_dataset`` belongs to
-the LM workload and is not ported yet.
+fused fold kernel (``fold_impl="kernel"``).  ``token_dataset`` hands the
+LM trainer a ``ColocatedTokenDataset`` over the same owners and placement.
 
 The paper's contribution is an *interface* (Table 1): Upload, Retrieve,
 Remove, a heterogeneity-aware Load balancer, and MapReduce templates over
@@ -1668,6 +1668,15 @@ class GridSession:
         return allocation_imbalance(
             self.placement.alloc, self.table.region_bytes(),
             self.placement.nodes)
+
+    def token_dataset(self, global_batch: int, seed: int = 0):
+        """A :class:`ColocatedTokenDataset` sharing this session's owners
+        and placement (training batches ride the same region→device map
+        the verbs maintain)."""
+        from repro_torch.data.pipeline import ColocatedTokenDataset
+        return ColocatedTokenDataset(
+            self.table, self.devices, global_batch,
+            placement=self.placement, seed=seed)
 
     def describe(self) -> str:
         m = self.metrics

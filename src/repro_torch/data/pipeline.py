@@ -1,19 +1,64 @@
-"""Synthetic imaging population served from the colocation grid.
+"""Data pipeline: training batches and the imaging population, served
+from the colocation grid.
 
-Port of ``src/repro/data/pipeline.py``, the imaging half only: the paper's
-T1 population with the Table-3 age/sex strata.  For one seed it draws
-exactly the reference's numbers.  Token corpora and the colocated training
-dataset belong to the LM workload and are not ported yet.
+Port of ``src/repro/data/pipeline.py``.  Token sequences are rows of a
+``TensorTable`` (one row = one fixed-length sample), regions are the unit
+of placement, and each owner draws its per-step share of a batch from the
+rows its regions hold.  The generators draw exactly the reference's
+numbers for one seed: the token corpus (``synthetic_token_table``) and the
+paper's T1 population with the Table-3 age/sex strata.
+
+The reference's ``Mesh`` becomes the owner-device list
+(``repro_torch.utils.owner_devices``), as in ``core/placement.py``: a
+dataset has one shard per owner, and a batch is one tensor on the first
+owner's device.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.core.balancer import NodeSpec
+from repro_torch.core.placement import Placement
 from repro_torch.core.regions import HierarchicalSplitPolicy
 from repro_torch.core.table import ColumnFamily, ColumnSpec, TensorTable
+from repro_torch.utils import owner_devices
+
+
+# ----------------------------------------------------------------------
+# synthetic datasets
+# ----------------------------------------------------------------------
+
+def synthetic_token_table(
+    n_rows: int,
+    seq_len: int,
+    vocab: int,
+    seed: int = 0,
+    region_bytes: int = 1 << 22,
+) -> TensorTable:
+    """A token corpus as a TensorTable: ``tok:ids`` + ``idx:size``."""
+    rng = np.random.default_rng(seed)
+    table = TensorTable(
+        "tokens",
+        [
+            ColumnFamily("tok", (ColumnSpec("ids", (seq_len,), np.int32),)),
+            ColumnFamily("idx", (ColumnSpec("size", (), np.int64),)),
+        ],
+        split_policy=HierarchicalSplitPolicy(max_region_bytes=region_bytes),
+    )
+    # mixture of zipf-ish unigram draws — enough structure for loss to move
+    probs = 1.0 / np.arange(1, vocab + 1) ** 1.1
+    probs /= probs.sum()
+    ids = rng.choice(vocab, size=(n_rows, seq_len), p=probs).astype(np.int32)
+    sizes = np.full(n_rows, seq_len * 4, np.int64)
+    table.upload(
+        [f"doc{i:08d}" for i in range(n_rows)],
+        {"tok": {"ids": ids}, "idx": {"size": sizes}},
+    )
+    return table
 
 
 #: Table 3 of the paper: (age_lo, age_hi, female_count, male_count)
@@ -82,3 +127,89 @@ def synthetic_image_population(
          "idx": {"size": sizes, "age": ages, "sex": sexes}},
     )
     return table
+
+
+# ----------------------------------------------------------------------
+# colocated loader
+# ----------------------------------------------------------------------
+
+class ColocatedTokenDataset:
+    """Serves ``[global_batch, seq]`` int32 batches, each owner's share
+    drawn only from the rows of its own regions.
+
+    ``devices`` is the owner list (None: one CUDA device); there are
+    ``D = len(devices)`` shards, and a ``placement`` handed in (a
+    ``GridSession``'s) must have D nodes.  The batch lands on the first
+    owner's device."""
+
+    def __init__(
+        self,
+        table: TensorTable,
+        devices: Optional[Sequence[Any]],
+        global_batch: int,
+        strategy: str = "greedy",
+        nodes: Optional[Sequence[NodeSpec]] = None,
+        seed: int = 0,
+        placement: Optional[Placement] = None,
+    ):
+        self.table = table
+        self.devices = owner_devices(devices)
+        self.global_batch = global_batch
+        D = len(self.devices)
+        if global_batch % D != 0:
+            raise ValueError(f"global_batch {global_batch} % {D} != 0")
+        self.per_shard = global_batch // D
+        self.D = D
+        if placement is not None:
+            # ride an existing region→device map (e.g. a GridSession's)
+            if len(placement.nodes) != D:
+                raise ValueError(
+                    f"placement has {len(placement.nodes)} nodes, need {D}")
+            self.placement = placement
+        else:
+            if nodes is None:
+                nodes = [NodeSpec(i, cores=1, mips=1.0) for i in range(D)]
+            self.placement = Placement.from_strategy(table, nodes, strategy)
+        self._rng = np.random.default_rng(seed)
+        self._pools_version = None
+        self._compute_pools()
+        self.seq_len = table.column_spec("tok", "ids").shape[0]
+
+    def _compute_pools(self) -> None:
+        """Per-shard row pools (positions into the table's row order).
+
+        Cached by the (table mutations, placement version) pair: under a
+        shared (GridSession) placement the table mutates between steps and
+        positional indices shift; for an immutable table this is free.
+        """
+        version = (self.table.mutation_count, self.placement.version)
+        if version == self._pools_version:
+            return
+        self._pools = [self.placement.rows_for_node(n.node_id)
+                       for n in self.placement.nodes]
+        for i, pool in enumerate(self._pools):
+            if len(pool) == 0:
+                raise ValueError(f"node {i} received no rows; "
+                                 "table too small for this many owners")
+        self._pools_version = version
+
+    def next_batch(self, step: int) -> torch.Tensor:
+        """Per-step batch: shard d draws from pool d.  The seed of each
+        draw is the reference's ``hash(("batch", step, d))``, whose string
+        hash Python salts per process (``PYTHONHASHSEED``): a step's batch
+        repeats within a process, not across processes."""
+        self._compute_pools()
+        ids = np.empty((self.D, self.per_shard, self.seq_len), np.int32)
+        col = self.table.column("tok", "ids")
+        for d, pool in enumerate(self._pools):
+            rng = np.random.default_rng(hash(("batch", step, d)) & 0x7FFFFFFF)
+            take = rng.choice(pool, size=self.per_shard, replace=True)
+            ids[d] = col[take]
+        flat = ids.reshape(self.global_batch, self.seq_len)
+        return torch.from_numpy(flat).to(self.devices[0])
+
+    def __iter__(self) -> Iterator[torch.Tensor]:
+        step = 0
+        while True:
+            yield self.next_batch(step)
+            step += 1

@@ -30,7 +30,12 @@ from repro_torch.models.layers import (
     unembed_apply,
 )
 from repro_torch.models.params import Init, normal_init
-from repro_torch.models.transformer import _layer, _stack, stack_layers
+from repro_torch.models.transformer import (
+    _layer,
+    _stack,
+    stack_layers,
+    unbind_layers,
+)
 
 #: rows of the learned decoder position table; positions wrap modulo it
 POS_TABLE = 8192
@@ -125,17 +130,16 @@ def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor
     T = frames.shape[1]
     x = frames + sinusoid_positions(T, cfg.d_model, frames.device)[None].to(
         frames.dtype)
-    for i in range(cfg.encoder.n_layers):
-        x = encoder_block_apply(cfg, _layer(params["encoder"], i), x)
+    for lp in unbind_layers(params["encoder"]):
+        x = encoder_block_apply(cfg, lp, x)
     return _ln(params["enc_ln"], x)
 
 
 def cross_kv_all(cfg: ModelConfig, params: Dict, enc_out: torch.Tensor
                  ) -> Dict:
     """Every decoder layer's cross K/V, stacked ``[L, B, T, Hkv, Dh]``."""
-    return _stack([attn.encode_cross_kv(
-        cfg, _layer(params["decoder"], i)["cross_attn"], enc_out)
-        for i in range(cfg.n_layers)])
+    return _stack([attn.encode_cross_kv(cfg, lp["cross_attn"], enc_out)
+                   for lp in unbind_layers(params["decoder"])])
 
 
 def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
@@ -154,9 +158,8 @@ def decode_full(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                torch.arange(tokens.shape[1], device=tokens.device))
     kv = cross_kv_all(cfg, params, enc_out)
     caches = []
-    for i in range(cfg.n_layers):
-        x, cache = decoder_block_full(cfg, _layer(params["decoder"], i), x,
-                                      _layer(kv, i))
+    for lp, lkv in zip(unbind_layers(params["decoder"]), unbind_layers(kv)):
+        x, cache = decoder_block_full(cfg, lp, x, lkv)
         if collect_cache:
             caches.append(cache)
     x = _ln(params["dec_ln"], x)

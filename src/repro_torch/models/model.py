@@ -1,15 +1,16 @@
-"""Model interface for serving: init / forward / prefill / decode.
+"""Model interface: init / forward_train / prefill / decode.
 
 Port of ``src/repro/models/model.py``.  ``build_model(cfg)`` returns an
 :class:`LM` (decoder stacks, the VLM stub's ``embeds=`` input included) or
 an :class:`EncDecModel` (whisper).  Parameters and caches are plain nested
 dicts and lists of tensors with the reference's structure, so
 ``repro_torch.convert.lm_params_from_jax`` carries the reference's weights
-across leaf by leaf.  Everything runs without autograd.  Parameters and
-caches are made on the card unless the caller asks for ``device="cpu"``
-(or ``"meta"``, which allocates nothing); without CUDA that raises.
-Training (``forward_train``, ``forward_hidden``, ``mtp_logits``) is not
-ported yet.
+across leaf by leaf.  The training entry points (``forward_train``,
+``forward_hidden``, ``mtp_logits``) run under autograd; ``forward`` is
+``forward_train`` without it, and ``prefill`` and ``decode_step`` never
+record a graph.  Parameters and caches are made on the card unless the
+caller asks for ``device="cpu"`` (or ``"meta"``, which allocates
+nothing); without CUDA that raises.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import embed_apply
+from repro_torch.models.layers import embed_apply, rms_norm
 from repro_torch.models.params import Init
 from repro_torch.models.rwkv import rwkv_dims
 from repro_torch.models.ssm import ssm_dims
@@ -163,20 +164,55 @@ class LM:
             return embed_apply(params["embed"], tokens, self.cfg.dtype)
         return embeds.to(self.cfg.dtype)
 
+    def forward_hidden(self, params: Dict,
+                       tokens: Optional[torch.Tensor] = None,
+                       embeds: Optional[torch.Tensor] = None,
+                       positions: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Whole-sequence forward over ``tokens [B, S]`` or the VLM stub's
+        ``embeds [B, S, D]`` -> (final hidden states [B,S,D] before the
+        norm, aux_loss), under autograd."""
+        x = self._embed(params, tokens, embeds)
+        B, S = x.shape[:2]
+        if positions is None:
+            positions = self._positions(B, S, x.device)
+        h, aux, _ = tf.stack_full(self.cfg, params, x, positions)
+        return h, aux
+
+    def forward_train(self, params: Dict,
+                      tokens: Optional[torch.Tensor] = None,
+                      embeds: Optional[torch.Tensor] = None,
+                      positions: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`forward_hidden`, then the LM head -> (logits [B,S,V],
+        aux_loss)."""
+        h, aux = self.forward_hidden(params, tokens, embeds, positions)
+        return tf.lm_logits(self.cfg, params, h), aux
+
     @torch.no_grad()
     def forward(self, params: Dict, tokens: Optional[torch.Tensor] = None,
                 embeds: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Whole-sequence forward over ``tokens [B, S]`` or the VLM stub's
-        ``embeds [B, S, D]`` -> (logits [B,S,V], aux_loss)."""
+        """:meth:`forward_train` without autograd."""
+        return self.forward_train(params, tokens, embeds, positions)
+
+    def mtp_logits(self, params: Dict, hidden: torch.Tensor,
+                   next_tokens: torch.Tensor) -> torch.Tensor:
+        """DeepSeek MTP head: predict token t+2 from (h_t, emb(token
+        t+1))."""
         cfg = self.cfg
-        x = self._embed(params, tokens, embeds)
-        B, S = x.shape[:2]
-        if positions is None:
-            positions = self._positions(B, S, x.device)
-        h, aux, _ = tf.stack_full(cfg, params, x, positions)
-        return tf.lm_logits(cfg, params, h), aux
+        emb = embed_apply(params["embed"], next_tokens, cfg.dtype)
+        h = torch.cat([hidden, emb], dim=-1) @ params["mtp"]["proj"].to(
+            cfg.dtype)
+        B, S = h.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device)[None].expand(B, S)
+        h, _, _ = tf.block_full(cfg, "attn",
+                                "moe" if cfg.moe is not None else "dense",
+                                params["mtp"]["block"], h, positions, None)
+        h = rms_norm(h, params["mtp"]["norm"]["scale"])
+        return tf.lm_logits(cfg, params, h)
 
     @torch.no_grad()
     def prefill(self, params: Dict, tokens: Optional[torch.Tensor] = None,
@@ -226,14 +262,20 @@ class EncDecModel:
             return encdec_mod.init_encdec(
                 self.cfg, Init(generator, resolve_device(device)))
 
-    @torch.no_grad()
-    def forward(self, params: Dict, frames: torch.Tensor,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits [B,S,V], a zero aux loss)."""
+    def forward_train(self, params: Dict, frames: torch.Tensor,
+                      tokens: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (logits [B,S,V], a zero aux loss), under autograd."""
         enc = encdec_mod.encode(self.cfg, params, frames)
         logits, _ = encdec_mod.decode_full(self.cfg, params, tokens, enc)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
+
+    @torch.no_grad()
+    def forward(self, params: Dict, frames: torch.Tensor,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`forward_train` without autograd."""
+        return self.forward_train(params, frames, tokens)
 
     @torch.no_grad()
     def prefill(self, params: Dict, frames: torch.Tensor,

@@ -6,19 +6,28 @@ blocks, and ``"attn_shared"`` blocks (zamba2), whose one weight set is
 reused at every occurrence with one KV cache per occurrence.  A run's
 parameters are stacked ``[n, ...]`` as in the reference, and the
 reference's ``lax.scan`` over layers becomes a Python loop over the
-stacked weights.  ``remat``, ``compute_view`` and the sharding
-constraints have no counterpart: the port serves on one card without
-gradients.  ``init_stack`` builds deepseek-v3's ``mtp`` subtree, so
-weights carry across and parameter counts match; ``mtp_logits`` belongs
-to training and is not ported yet.
+stacked weights.  Under autograd each block of a run is rematerialised
+as the reference's ``_remat`` asks (``cfg.remat_policy``): ``"full"``
+checkpoints the block and recomputes it in the backward pass, ``"dots"``
+does the same but keeps the outputs of ``aten.mm`` (the products with no
+batch dims, which ``checkpoint_dots_with_no_batch_dims`` keeps), and
+``"none"`` saves everything.  As in the reference, the shared attention
+block of zamba2 runs outside any remat.  ``compute_view`` and the
+sharding constraints have no counterpart on one card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -34,7 +43,7 @@ from repro_torch.models.layers import (
     unembed_apply,
 )
 from repro_torch.models.params import Init, normal_init
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +189,17 @@ def _stack(trees: List[Dict]) -> Dict:
             for k, v in trees[0].items()}
 
 
+def unbind_layers(tree: Dict) -> List[Dict]:
+    """The per-layer trees of a stacked ``[n, ...]`` tree, by one
+    ``torch.unbind`` a leaf: under autograd the backward then stacks each
+    leaf's gradient once, where indexing ``v[i]`` per layer would allocate
+    a zero tensor of the whole stack for every layer's gradient."""
+    leaves, treedef = tree_flatten(tree)
+    per_leaf = [torch.unbind(x) for x in leaves]
+    return [tree_unflatten(treedef, list(layer))
+            for layer in zip(*per_leaf)]
+
+
 def _layer(tree: Dict, i: int) -> Dict:
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
@@ -250,6 +270,26 @@ def init_stack(cfg: ModelConfig, init: Init) -> Dict:
 # stack apply
 # ----------------------------------------------------------------------
 
+def _save_mm(ctx, func, *args, **kwargs):
+    if func is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_mm)
+
+
+def _remat(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``fn`` under ``cfg.remat_policy``; as it is without autograd."""
+    if cfg.remat_policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat_policy == "dots":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=_dots_contexts)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def stack_full(
     cfg: ModelConfig,
     params: Dict,
@@ -270,10 +310,11 @@ def stack_full(
             aux_total = aux_total + aux
             caches.append(cache if collect_cache else None)
             continue
+        block = _remat(cfg, functools.partial(block_full, cfg, run.kind,
+                                              run.variant))
         run_cache = []
-        for i in range(run.n):
-            x, cache, aux = block_full(cfg, run.kind, run.variant,
-                                       _layer(rp, i), x, positions, None)
+        for lp in unbind_layers(rp):
+            x, cache, aux = block(lp, x, positions, None)
             aux_total = aux_total + aux
             run_cache.append(cache if collect_cache else None)
         if stacked(run, cfg):

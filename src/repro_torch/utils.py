@@ -91,6 +91,29 @@ def tree_leaves(tree: PyTree) -> List[Any]:
     return tree_flatten(tree)[0]
 
 
+def tree_leaves_with_path(tree: PyTree) -> List[Tuple[Tuple[Any, ...], Any]]:
+    """``[(path, leaf)]`` in :func:`tree_flatten` order; a path holds the
+    dict keys (str) and sequence indices (int) from the root, as
+    ``jax.tree_util.tree_flatten_with_path``'s ``DictKey.key`` and
+    ``SequenceKey.idx`` do."""
+    out: List[Tuple[Tuple[Any, ...], Any]] = []
+
+    def walk(t, path):
+        if t is None:
+            return
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        elif isinstance(t, (tuple, list)):
+            for i, x in enumerate(t):
+                walk(x, path + (i,))
+        else:
+            out.append((path, t))
+
+    walk(tree, ())
+    return out
+
+
 def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree) -> PyTree:
     """Apply ``fn`` leafwise over trees of one structure."""
     leaves, treedef = tree_flatten(tree)
