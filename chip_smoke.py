@@ -88,6 +88,24 @@
    before and after, and a profiler breakdown of one more step with the
    plain backwards' device time; (j3) ``Trainer`` resuming from its
    checkpoints on the card with every tensor equal.
+   (k) Then the distributed layer on a one-rank NCCL process group: (k1)
+   ``CellBuilder(zamba2-1.2b full, make_host_mesh(), "train")`` at
+   phase (j)'s batch shape, batches from ``ColocatedTokenDataset`` over
+   the mesh, two sharded steps against one mesh-less ``make_train_step``
+   from the same state (loss within 1e-3 and grad norm within 1e-2
+   relative, K2 12 and K3 128 wgmma launches a step), with the step
+   seconds beside phase (j)'s: DTensor's host cost; then in fp32 at 6
+   layers of full width, every leaf's gradient (read from AdamW's m
+   after one step) against a mesh-less step's: (k1) ``CellBuilder``'s
+   within the fp32 bound, (k2) ``make_compressed_train_step``'s on a
+   (1, 1, 1) pod/data/model mesh within it plus half an int8 quantum
+   (and the reference test's bounds: loss 5e-2, parameters 5e-3); (k3)
+   prefill and one decode step through ``CellBuilder`` at the serving
+   shape against the engine's (serving's bf16 rule against an fp32
+   prefill; next tokens); (k4) the dry run of zamba2's train_4k cell on
+   256 fake ranks and one rank's counts at phase (j)'s shape, in
+   subprocesses, and MFU of phase (j)'s step, all labelled "(dry-run,
+   H100 constants)".
 7. Times K2's two variants, SDPA and the plain version in turns at the
    serving call (and the simt kernel, SDPA and the plain version in fp32,
    the simt kernel's serving dtype) and at qwen3-8b's D=128 GQA shape,
@@ -116,8 +134,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO / "src"))
 
 from repro_torch.core import grid as grid_mod  # noqa: E402
 from repro_torch.core import stats as stats_mod  # noqa: E402
@@ -169,13 +191,25 @@ from repro_torch.models.model import (  # noqa: E402
     cast_for_compute,
     pad_caches,
 )
-from repro_torch.models.params import Init  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    ensure_process_group,
+    make_host_mesh,
+)
+from repro_torch.launch.roofline import model_flops  # noqa: E402
+from repro_torch.launch.shapes import ShapeSpec  # noqa: E402
+from repro_torch.launch.steps import CellBuilder  # noqa: E402
+from repro_torch.models.params import (  # noqa: E402
+    Init,
+    distribute_tree,
+    sharding_rules,
+)
+from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.optim.schedule import cosine_schedule  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.train.loss import lm_loss  # noqa: E402
 from repro_torch.train.step import (  # noqa: E402
     TrainStepConfig,
+    make_compressed_train_step,
     make_train_state,
     make_train_step,
 )
@@ -2210,6 +2244,416 @@ def report_training(gc_out, tr, rs, card, secs):
     log(f"phase (j) training {secs:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# phase (k): the distributed layer on the card, one rank
+# ----------------------------------------------------------------------
+
+#: (k1): CellBuilder's sharded step against the mesh-less step from the
+#: same state and batch, on a one-rank mesh, at full depth in bf16: the
+#: loss and the grad norm reduce over every token and every gradient, so
+#: bf16 noise averages out in them: within K1_LOSS_TOL and K1_GNORM_TOL
+#: relative
+K1_LOSS_TOL, K1_GNORM_TOL = 1e-3, 1e-2
+#: Gradients, (k1) and (k2): fp32 compute at zamba2-1.2b's width and
+#: GRAD_LAYERS layers, GRAD_B x TRAIN_SEQ tokens, one mesh-less step as the
+#: yardstick.  A first AdamW step moves every parameter by about +-lr
+#: whatever its gradient's size, so a gradient of the wrong scale does
+#: not show in the parameters: each leaf's gradient is read from m after
+#: one step (m = (1 - b1) clip g, clip from the step's own grad norm) and
+#: held within GRAD_RTOL of the leaf's largest magnitude plus GRAD_ATOL,
+#: the fp32 bound of tests/test_torch_train_families.py.  The compressed
+#: step's one pod rounds each leaf to int8 before the update, so it may
+#: differ by half a quantum (max|g| / 127 / 2) more, and must differ by
+#: more than the fp32 bound somewhere (else nothing was rounded)
+GRAD_LAYERS, GRAD_B = 6, 2
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+#: (k2): also the reference test's bounds (loss, worst parameter) at lr
+#: 1e-3
+K2_LOSS_TOL, K2_PARAM_TOL, K2_LR = 5e-2, 5e-3, 1e-3
+#: (k4): the dry run's wall time limit, seconds
+DRYRUN_TIMEOUT = 420
+
+
+def leaf_gap(a, b):
+    """max |a - b| of two trees of (D)Tensors, its leaf's path."""
+    out = {}
+    for (path, x), y in zip(tree_leaves_with_path(a), tree_leaves(b)):
+        x = x.full_tensor() if hasattr(x, "full_tensor") else x
+        y = y.full_tensor() if hasattr(y, "full_tensor") else y
+        out["/".join(map(str, path))] = float((x.float() - y.float())
+                                              .abs().max())
+    k = max(out, key=out.get)
+    return out[k], k, sum(out.values()) / len(out)
+
+
+def step_grads(opt_state, gnorm, opt_cfg):
+    """Each leaf's gradient by path, from AdamW's m after one step."""
+    clip = min(1.0, opt_cfg.grad_clip_norm / (gnorm + 1e-9))
+    out = {}
+    for path, m in tree_leaves_with_path(opt_state["m"]):
+        m = m.full_tensor() if hasattr(m, "full_tensor") else m
+        out["/".join(map(str, path))] = m.float() / ((1 - opt_cfg.b1) * clip)
+    return out
+
+
+def grad_gap(got, want, quantized=False):
+    """-> (worst gap over its bound, its leaf, worst gap in int8 quanta,
+    leaves whose gap exceeds the fp32 bound) of two gradient trees."""
+    worst, leaf, quanta, rounded = 0.0, "", 0.0, 0
+    for k, w in want.items():
+        amax = float(w.abs().max())
+        tol = GRAD_RTOL * amax + GRAD_ATOL
+        gap = float((got[k] - w).abs().max())
+        half = 0.5 * (amax / 127 + 1e-12) * (1 + GRAD_RTOL)
+        bound = tol + (half if quantized else 0.0)
+        rounded += gap > tol
+        quanta = max(quanta, gap / (2 * half))
+        if gap / bound > worst:
+            worst, leaf = gap / bound, k
+    return worst, leaf, quanta, rounded
+
+
+def sharded_train(mesh):
+    """(k1): zamba2-1.2b at full width and depth, fp32 params, bf16
+    compute, remat "dots", phase (j)'s batch shape (TRAIN_B x TRAIN_SEQ in
+    TRAIN_MICRO microbatches) from a ``ColocatedTokenDataset`` over the
+    mesh: one mesh-less step, then two of ``CellBuilder``'s step, both
+    from seed 0's state."""
+    cfg = dataclasses.replace(zamba2_1p2b.full(),
+                              train_microbatches=TRAIN_MICRO)
+    builder = CellBuilder(cfg, mesh, "train")
+    model = builder.model
+    table = synthetic_token_table(n_rows=256, seq_len=TRAIN_SEQ + 1,
+                                  vocab=cfg.vocab)
+    ds = ColocatedTokenDataset(table, mesh, global_batch=TRAIN_B)
+    batches = [ds.next_batch(i) for i in range(2)]
+    check(isinstance(batches[0], DTensor)
+          and tuple(batches[0].shape) == (TRAIN_B, TRAIN_SEQ + 1)
+          and batches[0].device.type == torch.device(DEV).type,
+          f"(k1) mesh batch {type(batches[0]).__name__} "
+          f"{tuple(batches[0].shape)}")
+    k2, k3 = launches_per_microbatch(cfg)
+    want = ({"wgmma": k2 * TRAIN_MICRO, "simt": 0},
+            {"wgmma": k3 * TRAIN_MICRO, "simt": 0})
+    out = {"want": want, "steps": []}
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params, opt = make_train_state(cfg, model, gen, DEV)
+    plain = make_train_step(cfg, model, AdamWConfig(), TrainStepConfig(
+        num_microbatches=TRAIN_MICRO))
+    reset_kernel_counts()
+    (p_plain, _, m_plain), out["plain_s"] = timed(
+        lambda: plain(params, opt, batches[0].full_tensor(), 0))
+    out["plain_counts"] = kernel_counts()
+    out["plain_loss"] = float(m_plain["loss"])
+    out["plain_gnorm"] = float(m_plain["grad_norm"])
+    del opt, params
+    free_card()
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = builder.place_params(model.init(gen, DEV))
+    opt = adamw_init(params)
+    fn, _, _, _ = builder.build({"tokens": batches[0]})
+    for i, batch in enumerate(batches):
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        (params, opt, m), secs = timed(lambda: fn(params, opt, batch, i))
+        out["steps"].append({
+            "s": secs, "counts": kernel_counts(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss": float(m["loss"]), "gnorm": float(m["grad_norm"])})
+    s0 = out["steps"][0]
+    check(out["plain_counts"] == want
+          and all(r["counts"] == want for r in out["steps"]),
+          f"(k1) launches: mesh-less {out['plain_counts']}, sharded "
+          f"{[r['counts'] for r in out['steps']]}, want {want}")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["gnorm"])
+              for r in out["steps"]), "(k1) non-finite loss or grad norm")
+    check(abs(s0["loss"] - out["plain_loss"])
+          <= K1_LOSS_TOL * abs(out["plain_loss"])
+          and abs(s0["gnorm"] - out["plain_gnorm"])
+          <= K1_GNORM_TOL * abs(out["plain_gnorm"]),
+          f"(k1) step 1: loss {s0['loss']:.6f} vs {out['plain_loss']:.6f}, "
+          f"grad norm {s0['gnorm']:.6f} vs {out['plain_gnorm']:.6f}")
+    del params, opt, p_plain, fn, builder, ds, batches
+    free_card()
+    return out
+
+
+def gradient_checks(mesh):
+    """(k1) and (k2) gradients in fp32 at zamba2-1.2b's width and
+    GRAD_LAYERS layers, GRAD_B x TRAIN_SEQ tokens, from one state: the
+    mesh-less step (lr K2_LR), ``CellBuilder``'s step on ``mesh`` and
+    ``make_compressed_train_step`` on a (1, 1, 1) pod/data/model mesh."""
+    cfg = dataclasses.replace(zamba2_1p2b.full(), n_layers=GRAD_LAYERS,
+                              dtype=F32, train_microbatches=1)
+    model = build_model(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    params = model.init(gen, DEV)
+    tokens = torch.randint(0, cfg.vocab, (GRAD_B, TRAIN_SEQ + 1),
+                           generator=gen, device=DEV, dtype=torch.int32)
+    k2, k3 = launches_per_microbatch(cfg)
+    want = ({"wgmma": 0, "simt": k2}, {"wgmma": 0, "simt": k3})
+    opt_cfg = AdamWConfig(lr=K2_LR)
+    out = {"want": want}
+
+    reset_kernel_counts()
+    p1, o1, m1 = make_train_step(cfg, model, opt_cfg)(
+        tree_map(torch.clone, params), adamw_init(params), tokens, 0)
+    out["plain_counts"] = kernel_counts()
+    g_plain = step_grads(o1, float(m1["grad_norm"]), opt_cfg)
+    del o1
+
+    builder = CellBuilder(cfg, mesh, "train")
+    fn, _, pls, _ = builder.build({"tokens": tokens})
+    dp = builder.place_params(tree_map(torch.clone, params))
+    reset_kernel_counts()
+    dp, od, md = fn(dp, adamw_init(dp), builder.place(tokens, pls[2]), 0)
+    out["cell_counts"] = kernel_counts()
+    out["cell"] = grad_gap(step_grads(od, float(md["grad_norm"]),
+                                        AdamWConfig()), g_plain)
+    del dp, od, fn, builder
+
+    pmesh = init_device_mesh(torch.device(DEV).type, (1, 1, 1),
+                             mesh_dim_names=("pod", "data", "model"))
+    p0 = tree_map(torch.clone, params)   # dp shares params' storage
+    dp = distribute_tree(params, model.logical_axes(), sharding_rules(),
+                         pmesh)
+    comp = make_compressed_train_step(cfg, model, opt_cfg, pmesh)
+    reset_kernel_counts()
+    (p2, o2, m2), out["s"] = timed(lambda: comp(dp, adamw_init(dp),
+                                                tokens, 0))
+    out["counts"] = kernel_counts()
+    out["loss"] = (float(m1["loss"]), float(m2["loss"]))
+    out["gap"] = leaf_gap(p1, p2)
+    out["moved"] = leaf_gap(p0, p2)[0]
+    out["comp"] = grad_gap(step_grads(o2, float(m2["grad_norm"]), opt_cfg),
+                             g_plain, quantized=True)
+    check(all(c == want for c in (out["plain_counts"], out["cell_counts"],
+                                  out["counts"])),
+          f"(k1/k2) fp32 launches: mesh-less {out['plain_counts']}, "
+          f"CellBuilder {out['cell_counts']}, compressed {out['counts']}, "
+          f"want {want}")
+    check(out["cell"][0] <= 1.0,
+          f"(k1) CellBuilder's fp32 gradient of {out['cell'][1]} off the "
+          f"mesh-less step's by {out['cell'][0]:.3g}x the bound")
+    check(out["comp"][0] <= 1.0 and out["comp"][3] > 0,
+          f"(k2) compressed gradients: worst {out['comp'][0]:.3g}x the "
+          f"bound ({out['comp'][1]}), {out['comp'][3]} leaves rounded")
+    check(abs(out["loss"][0] - out["loss"][1]) < K2_LOSS_TOL
+          and out["gap"][0] < K2_PARAM_TOL and out["moved"] > 0,
+          f"(k2) compressed vs plain step: loss {out['loss']}, worst "
+          f"parameter gap {out['gap'][0]:.3g} ({out['gap'][1]})")
+    del params, p0, p1, p2, dp, o2, comp, g_plain
+    free_card()
+    return out
+
+
+def sharded_serve(mesh):
+    """(k3): ``CellBuilder``'s prefill and one decode step of zamba2-1.2b
+    at phase 6's serving shape against the engine's, with an fp32 prefill
+    as the yardstick of serving's bf16 rule."""
+    cfg = zamba2_1p2b.full()
+    model = build_model(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = model.init(gen, DEV)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, device=DEV, dtype=torch.int32)
+    engine = ServeEngine(cfg, params, capacity=SERVE_PROMPT + SERVE_NEW + 1,
+                         batch_size=SERVE_B, device=DEV)
+    cfg32 = dataclasses.replace(cfg, dtype=F32)
+    logits32, _ = build_model(cfg32).prefill(
+        cast_for_compute(cfg32, params, DEV), prompts)
+    del params
+    free_card()
+    logits_e, caches_e = engine.model.prefill(engine.params, prompts)
+    caches_e = pad_caches(cfg, caches_e, engine.capacity)
+
+    pre = CellBuilder(cfg, mesh, "prefill")
+    fn, _, pls, _ = pre.build({"tokens": prompts})
+    dparams = pre.place_params(engine.params)
+    reset_kernel_counts()
+    (logits_c, caches_c), secs = timed(
+        lambda: fn(dparams, pre.place(prompts, pls[1])))
+    out = {"prefill_s": secs, "counts": kernel_counts()}
+    logits_c = logits_c.full_tensor().float()
+    kinds = cfg.layer_kinds()
+    want = ({"wgmma": kinds.count("attn_shared"), "simt": 0},
+            {"wgmma": kinds.count("ssm"), "simt": 0})
+    check(out["counts"] == want,
+          f"(k3) prefill launches {out['counts']}, want {want}")
+    out["mesh_to_f32"] = gaps(logits_c, logits32.float())
+    out["engine_to_f32"] = gaps(logits_e.float(), logits32.float())
+    out["mesh_vs_engine"] = gaps(logits_c, logits_e.float())
+    (cm, cmean), (em, emean) = out["mesh_to_f32"], out["engine_to_f32"]
+    check(cmean <= BF16_MEAN_RATIO * emean and cm <= BF16_MAX_RATIO * em,
+          f"(k3) mesh prefill further from fp32 than the engine's: mean "
+          f"{cmean:.3g} vs {emean:.3g}, max {cm:.3g} vs {em:.3g}")
+
+    dec = CellBuilder(cfg, mesh, "decode")
+    token = logits_e.argmax(-1).to(torch.int32)
+    pos = torch.full((SERVE_B,), SERVE_PROMPT, dtype=torch.int32, device=DEV)
+    specs = {"token": token, "pos": pos, "caches": caches_e}
+    fn, _, pls, _ = dec.build(specs)
+    dcaches = dec.place(tree_map(torch.clone, caches_e), pls[1])
+    reset_kernel_counts()
+    (next_c, _), out["decode_s"] = timed(lambda: fn(
+        dec.place_params(engine.params), dcaches, dec.place(token, pls[2]),
+        dec.place(pos, pls[3])))
+    logits_d, _ = engine.model.decode_step(engine.params, token, pos,
+                                           caches_e)
+    out["greedy"] = float((next_c.full_tensor() == logits_d.argmax(-1)
+                           .to(torch.int32)).float().mean())
+    check(out["greedy"] >= F32_GREEDY_MIN,
+          f"(k3) decode next tokens agree with the engine's on "
+          f"{out['greedy']:.3f}")
+    del engine, dparams, caches_c, caches_e, dcaches, logits32
+    free_card()
+    return out
+
+
+#: (k4): one rank's counts of phase (j)'s step (a one-rank ``fake``
+#: group), printed as JSON by a subprocess
+HOST_ROOFLINE = """
+import dataclasses, json, sys
+from repro_torch.configs import zamba2_1p2b
+from repro_torch.launch.dryrun import compile_cell
+from repro_torch.launch.mesh import fake_process_group, make_host_mesh
+from repro_torch.launch.roofline import derive_terms
+from repro_torch.launch.shapes import ShapeSpec
+b, seq, micro = map(int, sys.argv[1:4])
+cfg = dataclasses.replace(zamba2_1p2b.full(), train_microbatches=micro)
+fake_process_group(1)
+raw = compile_cell(cfg, ShapeSpec("phase_j", seq, b, "train"),
+                   make_host_mesh(device_type="cpu"), "train")
+terms = derive_terms(raw["flops"], raw["bytes"], raw["wire_bytes"],
+                     raw["cross_node_bytes"])
+print(json.dumps({"raw": raw, "bound_s": terms.bound_s,
+                  "dominant": terms.dominant}))
+"""
+
+
+def dryrun_phase(step_s):
+    """(k4): the dry run of zamba2-1.2b train_4k on the 16 x 16 mesh, and
+    one rank's counts at phase (j)'s shape, in subprocesses (a process
+    holds one default process group); MFU of phase (j)'s measured step
+    from ``model_flops`` at its shape."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(REPO / "src"))
+    with tempfile.TemporaryDirectory() as d:
+        runs = [subprocess.Popen(cmd, env=env, cwd=REPO,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for cmd in ([sys.executable, "-m", "repro_torch.launch.dryrun",
+                             "--arch", "zamba2_1p2b", "--shape", "train_4k",
+                             "--mesh", "single", "--out", d],
+                            [sys.executable, "-c", HOST_ROOFLINE,
+                             str(TRAIN_B), str(TRAIN_SEQ), str(TRAIN_MICRO)])]
+        texts = [p.communicate(timeout=DRYRUN_TIMEOUT)[0] for p in runs]
+        check(all(p.returncode == 0 for p in runs),
+              "(k4) dry run failed:\n" + "\n".join(t[-2000:] for t in texts))
+        single = json.load(open(os.path.join(
+            d, "zamba2_1p2b__train_4k__single.json")))
+    host = json.loads(texts[1].strip().splitlines()[-1])
+    check(single["status"] == "ok", "(k4) dry-run cell not ok")
+    mf = model_flops(zamba2_1p2b.full(),
+                     ShapeSpec("phase_j", TRAIN_SEQ, TRAIN_B, "train"))
+    return {"single": single, "host": host, "step_s": step_s,
+            "model_flops": mf, "mfu": mf / (step_s * BF16_FLOPS),
+            "bound_share": host["bound_s"] / step_s}
+
+
+def distributed_phase(step_s):
+    """(k1)-(k4) on a one-rank NCCL group (made here, destroyed after)."""
+    ensure_process_group(torch.device(DEV).type)
+    try:
+        mesh = make_host_mesh(device_type=torch.device(DEV).type)
+        t0 = time.perf_counter()
+        k1 = sharded_train(mesh)
+        k2 = gradient_checks(mesh)
+        k3 = sharded_serve(mesh)
+        secs = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    k4 = dryrun_phase(step_s)
+    return k1, k2, k3, k4, secs, time.perf_counter() - t0
+
+
+def report_distributed(k1, k2, k3, k4, secs, dry_s, card):
+    s0, s1 = k1["steps"]
+    step_j = k4["step_s"]
+    log(f"phase (k1) on {card}: CellBuilder(zamba2-1.2b full, (data 1, "
+        f"model 1) NCCL mesh, train) at {TRAIN_B} x {TRAIN_SEQ} in "
+        f"{TRAIN_MICRO} microbatches, fp32 params, bf16 compute, batches "
+        f"from ColocatedTokenDataset over the mesh: steps {s0['s']:.3f} s "
+        f"and {s1['s']:.3f} s (loss {s0['loss']:.4f}, {s1['loss']:.4f}; "
+        f"peak {s0['peak_gb']:.1f} / {s1['peak_gb']:.1f} GB; K2 "
+        f"{s0['counts'][0]}, K3 {s0['counts'][1]} a step); the mesh-less "
+        f"make_train_step from the same state {k1['plain_s']:.3f} s (loss "
+        f"{k1['plain_loss']:.4f}, grad norm {k1['plain_gnorm']:.4f} vs "
+        f"{s0['gnorm']:.4f}; K2 {k1['plain_counts'][0]}, K3 "
+        f"{k1['plain_counts'][1]}, the first step of this phase); against "
+        f"phase (j)'s warm steps ({step_j:.3f} s, same batch shape and "
+        f"kernels), DTensor's host cost is {s1['s'] - step_j:.3f} s a step "
+        f"({s1['s'] / step_j:.2f}x; the first sharded step "
+        f"{s0['s'] - step_j:.3f} s, its sharding propagation not yet "
+        f"cached); loss tolerance {K1_LOSS_TOL}, grad norm {K1_GNORM_TOL}")
+    w, leaf, _, _ = k2["cell"]
+    log(f"phase (k1) gradients on {card}: fp32, zamba2-1.2b width x "
+        f"{GRAD_LAYERS} layers, {GRAD_B} x {TRAIN_SEQ} tokens, K2 "
+        f"{k2['cell_counts'][0]}, K3 {k2['cell_counts'][1]}: every leaf "
+        f"of CellBuilder's step against the mesh-less step's, worst "
+        f"{w:.3g}x the bound {GRAD_RTOL} max|g| + {GRAD_ATOL} ({leaf})")
+    w, leaf, quanta, rounded = k2["comp"]
+    log(f"phase (k2) on {card}: make_compressed_train_step on a (pod 1, "
+        f"data 1, model 1) NCCL mesh, same fp32 state and tokens, lr "
+        f"{K2_LR}: every leaf's gradient within {w:.3g}x (half an int8 "
+        f"quantum + the fp32 bound; worst {leaf}) of the plain step's, at "
+        f"most {quanta:.3g} quantum off, {rounded} leaves past the fp32 "
+        f"bound (rounded); loss {k2['loss'][1]:.6f} vs "
+        f"{k2['loss'][0]:.6f} (bound {K2_LOSS_TOL}), worst parameter gap "
+        f"{k2['gap'][0]:.3g} ({k2['gap'][1]}; bound {K2_PARAM_TOL}), "
+        f"{k2['s']:.3f} s, K2 {k2['counts'][0]}, K3 {k2['counts'][1]}")
+    (cm, cmean), (em, emean) = k3["mesh_to_f32"], k3["engine_to_f32"]
+    log(f"phase (k3) on {card}: CellBuilder prefill of zamba2-1.2b at "
+        f"{SERVE_B} x {SERVE_PROMPT} in {k3['prefill_s']:.3f} s (K2 "
+        f"{k3['counts'][0]}, K3 {k3['counts'][1]}): |Δlogit| to an fp32 "
+        f"prefill max {cm:.4g} / mean {cmean:.4g} vs the engine's "
+        f"{em:.4g} / {emean:.4g} (serving's bf16 rule: at most "
+        f"{BF16_MAX_RATIO} / {BF16_MEAN_RATIO} x); mesh vs engine max "
+        f"{k3['mesh_vs_engine'][0]:.4g}; one decode step through "
+        f"CellBuilder in {k3['decode_s']:.3f} s, next tokens equal to the "
+        f"engine's on {k3['greedy']:.3f}")
+    r = k4["single"]
+    ro, raw = r["roofline"], r["raw"]
+    log(f"phase (k4) zamba2-1.2b train_4k single mesh ({r['devices']} "
+        f"ranks, batch {r['spec']['global_batch']} x "
+        f"{r['spec']['seq_len']}) (dry-run, H100 constants): per rank "
+        f"{raw['flops']:.4g} FLOPs, {raw['bytes']:.4g} bytes, wire "
+        f"{raw['wire_bytes']:.4g} bytes ({raw['cross_node_bytes']:.4g} "
+        f"across nodes; by kind "
+        f"{ {k: float(f'{v:.4g}') for k, v in raw['coll_by_op'].items()} }), "
+        f"peak {r['per_device_bytes'] / 1e9:.2f} GB (fits "
+        f"80 GB: {r['fits_h100']}); compute {ro['compute_s']:.4g} s, "
+        f"memory {ro['memory_s']:.4g} s, collective "
+        f"{ro['collective_s']:.4g} s, bound {ro['bound_s']:.4g} s "
+        f"({ro['dominant']}); useful FLOPs ratio "
+        f"{ro['useful_flops_ratio']:.4f}; dry run {r['wall_s']:.1f} s")
+    h = k4["host"]["raw"]
+    log(f"phase (k4) zamba2-1.2b at phase (j)'s shape on one rank "
+        f"({TRAIN_B} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches) (dry-run, "
+        f"H100 constants): {h['flops']:.4g} FLOPs, {h['bytes']:.4g} bytes, "
+        f"peak {h['memory']['peak_live_bytes'] / 1e9:.2f} GB; bound "
+        f"{k4['host']['bound_s']:.4g} s ({k4['host']['dominant']})")
+    log(f"phase (k4) on {card}: model FLOPs of phase (j)'s step "
+        f"{k4['model_flops']:.4g} over its measured {k4['step_s']:.3f} s x "
+        f"989e12: MFU {k4['mfu']:.4f} (dry-run, H100 constants); the "
+        f"one-rank bound over the step {k4['bound_share']:.4f}")
+    log(f"phase (k) distributed {secs:.1f} s on the card, dry run "
+        f"{dry_s:.1f} s")
+
+
 #: K2's timed calls: zamba2-1.2b's prefill attention, and qwen3-8b's
 #: heads (32 query heads over 8 KV heads of 128) at the same batch and
 #: prompt; (B, H, Hkv, S, D), bf16, causal, as [B, S, H, D] views
@@ -2598,6 +3042,8 @@ def main() -> int:
     tr = train_path()
     rs = resume_check()
     report_training(gc_out, tr, rs, card, time.perf_counter() - t0)
+    step_j = float(np.mean([r["s"] for r in tr["steps"][1:]]))
+    report_distributed(*distributed_phase(step_j), card=card)
 
     k2m = {tag: measure_k2(gen, *shape, f32=tag == "zamba2")
            for tag, shape in K2_TIMED.items()}

@@ -20,9 +20,11 @@ as their raw two-byte patterns (numpy's ``V2``), the bytes the reference's
 dtype name.
 
 :func:`restore_checkpoint` returns tensors on each template leaf's device
-and in its dtype.  This stands in for the reference's ``shardings``
-re-placement: the reference hands back host numpy arrays, which its
-jitted step accepts, where a step of the port needs tensors on the card.
+and in its dtype, and a DTensor with the template leaf's mesh and
+placements where the template leaf is one: the reference's
+``shardings=`` re-placement.  A DTensor leaf is saved as its global
+value (a collective that every rank joins); only rank 0 of a process
+group writes.
 """
 
 from __future__ import annotations
@@ -63,6 +65,8 @@ def _key(path) -> str:
 
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as a host array that owns its memory, and its dtype name."""
+    if hasattr(leaf, "full_tensor"):            # a DTensor: its global value
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -70,6 +74,23 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
         return t.numpy(), _DTYPE_NAMES[t.dtype]
     arr = np.array(leaf)
     return arr, str(arr.dtype)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _place(t: torch.Tensor, leaf) -> torch.Tensor:
+    """``t`` (a host tensor) on the template leaf's device, dtype and, for
+    a DTensor leaf, mesh and placements (each rank keeps its shards)."""
+    if hasattr(leaf, "device_mesh"):
+        from torch.distributed.tensor import distribute_tensor
+        mesh = leaf.device_mesh
+        t = t.to(device=mesh.device_type, dtype=leaf.dtype)
+        return distribute_tensor(t, mesh, leaf.placements,
+                                 src_data_rank=None)
+    return t.to(device=leaf.device, dtype=leaf.dtype)
 
 
 def _flatten(tree: PyTree) -> Dict[str, Tuple[np.ndarray, str]]:
@@ -90,8 +111,10 @@ def save_checkpoint(
 def _write(directory: str, step: int,
            flat: Dict[str, Tuple[np.ndarray, str]],
            metadata: Optional[Dict]) -> str:
-    os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:09d}")
+    if _rank() != 0:
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -150,8 +173,8 @@ def restore_checkpoint(
             if arr.shape != want_shape:
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                                  f"template {want_shape}")
-            t = _as_tensor(arr, manifest["dtypes"][key])
-            leaves_out.append(t.to(device=leaf.device, dtype=leaf.dtype))
+            leaves_out.append(_place(_as_tensor(arr, manifest["dtypes"][key]),
+                                     leaf))
     return tree_unflatten(treedef, leaves_out), manifest["metadata"]
 
 
@@ -193,7 +216,8 @@ class CheckpointManager:
         def work():
             try:
                 _write(self.directory, step, flat, metadata)
-                self._gc()
+                if _rank() == 0:
+                    self._gc()
             except BaseException as e:  # surfaced on next wait()
                 self._error = e
 

@@ -67,7 +67,7 @@ compute.  An entry evicted out of every tier is simply re-gathered — and a
 lost partial re-folded — on next use (regression tests assert
 re-materialization is loss-free).
 
-Since the reference's ``GridFrontend`` (not ported yet) serves queries from a
+Since ``GridFrontend`` (``core/frontend.py``) serves queries from a
 thread pool, the store is safe under **concurrent readers with serialized
 mutators**: every cache is a locked :class:`LRUCache` whose iterating
 helpers return point-in-time lists, compound operations (fetch, partial

@@ -8,10 +8,13 @@ rows its regions hold.  The generators draw exactly the reference's
 numbers for one seed: the token corpus (``synthetic_token_table``) and the
 paper's T1 population with the Table-3 age/sex strata.
 
-The reference's ``Mesh`` becomes the owner-device list
-(``repro_torch.utils.owner_devices``), as in ``core/placement.py``: a
-dataset has one shard per owner, and a batch is one tensor on the first
-owner's device.
+A dataset has one shard per owner.  The owners are either a device list
+(``repro_torch.utils.owner_devices``, as in ``core/placement.py``), and a
+batch is then one tensor on the first owner's device; or a
+``DeviceMesh``, the reference's ``Mesh``: one shard per rank along the
+batch axes (``pod``, ``data``), and a batch is a DTensor split
+``Shard(0)`` over them (:meth:`ColocatedTokenDataset.batch_sharding`),
+each rank keeping its own shard.
 """
 
 from __future__ import annotations
@@ -137,10 +140,11 @@ class ColocatedTokenDataset:
     """Serves ``[global_batch, seq]`` int32 batches, each owner's share
     drawn only from the rows of its own regions.
 
-    ``devices`` is the owner list (None: one CUDA device); there are
-    ``D = len(devices)`` shards, and a ``placement`` handed in (a
-    ``GridSession``'s) must have D nodes.  The batch lands on the first
-    owner's device."""
+    ``devices`` is the owner list (None: one CUDA device), with ``D =
+    len(devices)`` shards and the batch on the first owner's device; or a
+    ``DeviceMesh``, with one shard per rank of its batch axes and the
+    batch a DTensor.  A ``placement`` handed in (a ``GridSession``'s) must
+    have D nodes."""
 
     def __init__(
         self,
@@ -153,9 +157,17 @@ class ColocatedTokenDataset:
         placement: Optional[Placement] = None,
     ):
         self.table = table
-        self.devices = owner_devices(devices)
+        self.mesh = devices if hasattr(devices, "mesh_dim_names") else None
+        if self.mesh is not None:
+            names = self.mesh.mesh_dim_names
+            self.batch_axes = tuple(a for a in ("pod", "data") if a in names)
+            D = int(np.prod([self.mesh.size(names.index(a))
+                             for a in self.batch_axes]))
+            self.devices = [torch.device(self.mesh.device_type)]
+        else:
+            self.devices = owner_devices(devices)
+            D = len(self.devices)
         self.global_batch = global_batch
-        D = len(self.devices)
         if global_batch % D != 0:
             raise ValueError(f"global_batch {global_batch} % {D} != 0")
         self.per_shard = global_batch // D
@@ -205,8 +217,19 @@ class ColocatedTokenDataset:
             rng = np.random.default_rng(hash(("batch", step, d)) & 0x7FFFFFFF)
             take = rng.choice(pool, size=self.per_shard, replace=True)
             ids[d] = col[take]
-        flat = ids.reshape(self.global_batch, self.seq_len)
-        return torch.from_numpy(flat).to(self.devices[0])
+        flat = torch.from_numpy(ids.reshape(self.global_batch, self.seq_len))
+        if self.mesh is None:
+            return flat.to(self.devices[0])
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(flat.to(self.devices[0]), self.mesh,
+                                 self.batch_sharding(), src_data_rank=None)
+
+    def batch_sharding(self):
+        """The batch's DTensor placements: ``Shard(0)`` on the batch axes
+        (pod-major), replicated on the others."""
+        from torch.distributed.tensor import Replicate, Shard
+        return tuple(Shard(0) if a in self.batch_axes else Replicate()
+                     for a in self.mesh.mesh_dim_names)
 
     def __iter__(self) -> Iterator[torch.Tensor]:
         step = 0

@@ -148,6 +148,16 @@ def check_launch(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def require_local(*tensors) -> None:
+    """Raise for a DTensor: a kernel takes each rank's local shard (the
+    model runs it inside ``local_call``), and a DTensor has no data
+    pointer of its own."""
+    for t in tensors:
+        if hasattr(t, "placements"):
+            raise TypeError("a CUDA kernel got a DTensor: call it on local "
+                            "shards (under the sharding policy)")
+
+
 def tma_strides(t) -> Optional[Tuple[int, ...]]:
     """The element strides of every dimension of tensor ``t`` but the last
     under which TMA can read it as it lies, or None when it must be copied

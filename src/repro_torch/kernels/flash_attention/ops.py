@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._build import require_local
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -73,4 +74,5 @@ def flash_attention(
     """Softmax attention, output in q's dtype; ``window=0`` means none."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, scale, causal, window)
+    require_local(q, k, v)
     return FlashAttention.apply(q, k, v, scale, causal, window)

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels._build import require_local
 from repro_torch.kernels.ssm_scan.kernel import ssd_scan_cuda
 from repro_torch.kernels.ssm_scan.ref import ssd_chunked_ref
 
@@ -83,4 +84,5 @@ def ssd_scan(
     if x.device.type == "cpu":
         return ssd_chunked_ref(x, a, Bm, Cm, min(chunk, x.shape[1]),
                                init_state)
+    require_local(x, a, Bm, Cm, init_state)
     return SSDScan.apply(x, a, Bm, Cm, chunk, init_state)

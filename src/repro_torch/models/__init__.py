@@ -1,4 +1,4 @@
 """The LM workload's model code in PyTorch.  Port of ``src/repro/models``:
-config, params, layers, attention (K2 on CUDA), ssm (K3 on CUDA),
-transformer and model.  The MoE, MLA, RWKV and encoder-decoder families
-are not ported yet (see ``ROADMAP.md``)."""
+config, params (with the sharding rules), sharding (the activation
+policy), layers, attention (K2 on CUDA), ssm (K3 on CUDA), moe, rwkv,
+transformer, encdec and model."""

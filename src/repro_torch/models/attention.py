@@ -4,14 +4,22 @@ absorbed decode.
 
 Port of ``src/repro/models/attention.py``.  ``attention_full`` and the
 prefill cross-attention compute their inner product with
-``kernels.flash_attention.flash_attention`` for both ``attention_impl``
-values: the CUDA kernel (K2) on a CUDA tensor, its plain version on a CPU
-tensor.  The one-token decodes (``attention_decode``, cross-attention at
-decode, ``mla_decode``) stay plain PyTorch over the cache, as the
-reference's do (it has no Pallas kernel for them).  ``mla_full`` is plain
-``_sdpa`` too: its qk head (192 in deepseek-v3) differs from its v head
-(128), and K2 takes one head dim for q, k and v, as the reference's
-Pallas kernel does; the reference's MLA is XLA einsums as well.
+``kernels.flash_attention.flash_attention`` on a CUDA tensor (the CUDA
+kernel, K2) for both ``attention_impl`` values; on a CPU tensor they run
+K2's plain version, or the blockwise online softmax ``_sdpa_chunked``
+when ``attention_impl="chunked"``.  The one-token decodes
+(``attention_decode``, cross-attention at decode, ``mla_decode``) stay
+plain PyTorch over the cache, as the reference's do (it has no Pallas
+kernel for them).  ``mla_full`` is plain ``_sdpa`` or ``_sdpa_chunked``
+on both devices: its qk head (192 in deepseek-v3) differs from its v
+head (128), and K2 takes one head dim for q, k and v, as the reference's
+Pallas kernel does.
+
+Under a sharding policy (``models/sharding.py``) the inner product runs
+on each rank's local shards (``local_call``): batch over the batch axes,
+heads over ``model``.  When the KV heads do not divide the ``model``
+axis but the query heads do, each rank takes the KV heads its query
+heads read.
 """
 
 from __future__ import annotations
@@ -19,11 +27,20 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mrope, apply_rope, rms_norm
 from repro_torch.models.params import Init, normal_init
+from repro_torch.models.sharding import (
+    current_policy,
+    is_dtensor,
+    local_call,
+    merge_last,
+    mesh_coordinate,
+    split_last,
+)
 
 NEG_INF = -1e30
 
@@ -38,6 +55,53 @@ def causal_mask(q_len: int, kv_len: int, window: Optional[int] = None,
     if window is not None:
         ok &= k_pos > q_pos - window
     return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, causal: bool, window: Optional[int],
+                  block: int = 1024) -> torch.Tensor:
+    """Blockwise online-softmax attention in plain PyTorch: KV blocks of
+    ``block`` with a running (max, normaliser, accumulator), so the
+    ``[S, T]`` scores never exist whole.  q ``[B,S,H,D]``, k/v
+    ``[B,T,Hkv,D|Dv]`` -> ``[B,S,H,Dv]``; the scores in fp32, the product
+    with V in v's dtype, as the reference's ``preferred_element_type``
+    asks."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // Hkv
+    blk = min(block, T)
+    nb = -(-T // blk)
+    pad = nb * blk - T
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    f32 = torch.float32
+    qg = (q.reshape(B, S, Hkv, G, D) * scale).to(q.dtype).to(f32)
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, Hkv, G, S), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, Hkv, G, S), dtype=f32, device=q.device)
+    acc = torch.zeros((B, Hkv, G, S, Dv), dtype=f32, device=q.device)
+    for j in range(nb):
+        kblk = k[:, j * blk:(j + 1) * blk]
+        vblk = v[:, j * blk:(j + 1) * blk]
+        s = torch.einsum("bshgd,bthd->bhgst", qg, kblk.to(f32))
+        k_pos = j * blk + torch.arange(blk, device=q.device)[None, :]
+        ok = k_pos < T
+        if causal:
+            ok = ok & (k_pos <= q_pos)
+            if window is not None:
+                ok = ok & (k_pos > q_pos - window)
+        s = torch.where(ok, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhgst,bthd->bhgsd", p.to(vblk.dtype), vblk)
+        acc = acc * corr[..., None] + pv.to(f32)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.movedim(3, 1).reshape(B, S, H, Dv).to(q.dtype)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,10 +142,19 @@ def init_attention(cfg: ModelConfig, init: Init, cross: bool = False
     return p
 
 
+def attention_axes(cfg: ModelConfig, cross: bool = False) -> Dict:
+    ax = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+          "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias and not cross:
+        ax.update({"bq": ("heads",), "bk": ("kv_heads",),
+                   "bv": ("kv_heads",)})
+    if cfg.qk_norm:
+        ax.update({"q_norm": (None,), "k_norm": (None,)})
+    return ax
+
+
 def _project_qkv(cfg: ModelConfig, p: Dict, xq: torch.Tensor,
                  xkv: torch.Tensor, compute_dtype):
-    B, S, _ = xq.shape
-    T = xkv.shape[1]
     q = xq @ p["wq"].to(compute_dtype)
     k = xkv @ p["wk"].to(compute_dtype)
     v = xkv @ p["wv"].to(compute_dtype)
@@ -89,23 +162,62 @@ def _project_qkv(cfg: ModelConfig, p: Dict, xq: torch.Tensor,
         q = q + p["bq"].to(compute_dtype)
         k = k + p["bk"].to(compute_dtype)
         v = v + p["bv"].to(compute_dtype)
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    q = split_last(q, cfg.n_heads, cfg.head_dim)
+    k = split_last(k, cfg.n_kv_heads, cfg.head_dim)
+    v = split_last(v, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     return q, k, v
 
 
+def _heads_local(inner, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """``inner(q, k, v)`` on ``[B, S, H, D]`` tensors; under a policy, on
+    each rank's shards (batch over the batch axes, heads over
+    ``model``)."""
+    pol = current_policy()
+    if pol is None or not is_dtensor(q):
+        return inner(q, k, v)
+    from torch.distributed.tensor import Replicate, Shard
+
+    qpl = pol.placements_for(q.shape, ("batch", None, "heads", None))
+    kpl = list(pol.placements_for(k.shape, ("batch", None, "kv_heads", None)))
+    sliced = False
+    for qp, kp in zip(qpl, kpl):
+        if qp != kp:                  # query heads split, KV heads whole
+            assert qp == Shard(2) and kp == Replicate(), (qpl, kpl)
+            sliced = True
+    body = inner
+    if sliced:
+        H, Hkv = q.shape[2], k.shape[2]
+        Hl = H // pol.shape["model"]
+        G = H // Hkv
+        i = mesh_coordinate("model")
+        lo, hi = (i * Hl) // G, ((i + 1) * Hl - 1) // G + 1
+
+        def body(ql, kl, vl):
+            return inner(ql, kl[:, :, lo:hi], vl[:, :, lo:hi])
+    return local_call(body, (q, k, v), (qpl, tuple(kpl), tuple(kpl)), qpl)
+
+
 def _flash(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor, causal: bool) -> torch.Tensor:
     """K2 on ``[B, S, H, D]`` activations, passed as ``[B, H, S, D]``
-    views (the kernel takes the strides as they are)."""
+    views (the kernel takes the strides as they are); on a CPU tensor
+    with ``attention_impl="chunked"``, ``_sdpa_chunked``."""
     window = (cfg.sliding_window or 0) if causal else 0
-    return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), cfg.head_dim ** -0.5,
-                           causal=causal, window=window).transpose(1, 2)
+    scale = cfg.head_dim ** -0.5
+
+    def inner(q, k, v):
+        if cfg.attention_impl == "chunked" and q.device.type != "cuda":
+            return _sdpa_chunked(q, k, v, scale, causal, cfg.sliding_window,
+                                 cfg.attention_block)
+        return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), scale, causal=causal,
+                               window=window).transpose(1, 2)
+
+    return _heads_local(inner, q, k, v)
 
 
 def attention_full(
@@ -128,10 +240,86 @@ def attention_full(
     else:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    B, S = x.shape[:2]
     out = _flash(cfg, q, k, v, causal)
-    y = out.reshape(B, S, -1) @ p["wo"].to(dt)
+    y = merge_last(out) @ p["wo"].to(dt)
     return y, {"k": k, "v": v}
+
+
+def _seq_split(T_local: int):
+    """(first cache row held here, the ``model`` group) when a decode
+    cache's sequence is split over ``model`` inside ``local_call``; (0,
+    None) otherwise."""
+    pol = current_policy()
+    if pol is None or pol.shape.get("model", 1) == 1 \
+            or "model" not in pol.rules.get("seq", ()):
+        return 0, None
+    return (mesh_coordinate("model") * T_local,
+            pol.mesh.get_group("model"))
+
+
+def _write_rows(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                lo: int, split: bool) -> None:
+    """``cache[b, pos[b] - lo] = new[b]`` in place.  Whole (``split``
+    false), a position past the capacity raises.  Split over ranks, only
+    the rows held here (``lo ..``) change: a position held elsewhere
+    rewrites the row it reads, so no shape depends on the data."""
+    T = cache.shape[1]
+    b_idx = torch.arange(cache.shape[0], device=cache.device)
+    if not split:
+        cache[b_idx, pos] = new
+        return
+    at = pos - lo
+    held = (at >= 0) & (at < T)
+    at = torch.clamp(at, 0, T - 1)
+    keep = cache[b_idx, at]
+    sel = held.reshape(-1, *([1] * (new.dim() - 1)))
+    cache[b_idx, at] = torch.where(sel, new.to(cache.dtype), keep)
+
+
+def _decode_ok(pos: torch.Tensor, T: int, lo: int,
+               window: Optional[int]) -> torch.Tensor:
+    """``[B, T]``: which cache rows (``lo ..``) a token at ``pos`` reads."""
+    k_pos = lo + torch.arange(T, device=pos.device)[None, :]
+    ok = k_pos <= pos[:, None]
+    if window is not None:
+        ok &= k_pos > (pos[:, None] - window)
+    return ok
+
+
+def _combine_split_softmax(s: torch.Tensor, v: torch.Tensor, eq: str,
+                           group) -> torch.Tensor:
+    """Softmax over a key axis split across ``group`` (the last of ``s``,
+    fp32 scores with the mask added), then the product with the local
+    ``v`` by ``eq``: the ranks' maxima, normalisers and weighted values
+    merged by one max and two sums (flash decode)."""
+    import torch.distributed._functional_collectives as funcol
+
+    m = funcol.all_reduce(s.amax(dim=-1, keepdim=True), "max", group)
+    p = torch.exp(s - m)
+    w = p / funcol.all_reduce(p.sum(dim=-1, keepdim=True), "sum", group)
+    return funcol.all_reduce(torch.einsum(eq, w, v.to(torch.float32)),
+                             "sum", group)
+
+
+def _decode_local(body, *args):
+    """``body(*queries, *new rows, cache_a, cache_b, pos)``; under a
+    policy on each rank's batch and cache-sequence shards (``local_call``):
+    the caches keep their layout, the rest is whole over ``model``."""
+    pol = current_policy()
+    if pol is None or not is_dtensor(args[-2]):
+        return body(*args)
+
+    def batch_only(t):
+        return pol.placements_for(t.shape, ("batch",) + (None,) * (t.dim() - 1))
+
+    def cache(t):
+        return pol.placements_for(t.shape, ("batch", "seq")
+                                  + (None,) * (t.dim() - 2))
+
+    pls = [batch_only(t) for t in args[:-3]] + [cache(args[-3]),
+                                                cache(args[-2]),
+                                                batch_only(args[-1])]
+    return local_call(body, args, pls, (pls[0], pls[-3], pls[-2]))
 
 
 def attention_decode(
@@ -157,18 +345,27 @@ def attention_decode(
     else:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
-    k, v = cache["k"], cache["v"]
-    T = k.shape[1]
-    b_idx = torch.arange(x.shape[0], device=x.device)
-    k[b_idx, pos] = k_new[:, 0]
-    v[b_idx, pos] = v_new[:, 0]
-    k_pos = torch.arange(T, device=x.device)[None, :]
-    ok = k_pos <= pos[:, None]
-    if cfg.sliding_window is not None:
-        ok &= k_pos > (pos[:, None] - cfg.sliding_window)
-    mask = torch.where(ok, 0.0, NEG_INF)[:, None, None, None, :]
-    out = _sdpa(q, k, v, mask, cfg.head_dim ** -0.5)
-    y = out.reshape(out.shape[0], 1, -1) @ p["wo"].to(dt)
+    scale = cfg.head_dim ** -0.5
+
+    def body(q, k_new, v_new, k, v, pos):
+        lo, group = _seq_split(k.shape[1])
+        _write_rows(k, k_new[:, 0], pos, lo, group is not None)
+        _write_rows(v, v_new[:, 0], pos, lo, group is not None)
+        ok = _decode_ok(pos, k.shape[1], lo, cfg.sliding_window)
+        mask = torch.where(ok, 0.0, NEG_INF)[:, None, None, None, :]
+        if group is None:
+            return _sdpa(q, k, v, mask, scale), k, v
+        B, _, H, D = q.shape
+        Hkv = k.shape[2]
+        qg = q.reshape(B, 1, Hkv, H // Hkv, D).to(torch.float32)
+        s = torch.einsum("bshgd,bthd->bhgst", qg,
+                         k.to(torch.float32)) * scale + mask
+        out = _combine_split_softmax(s, v, "bhgst,bthd->bshgd", group)
+        return out.reshape(B, 1, H, D).to(v.dtype), k, v
+
+    out, k, v = _decode_local(body, q, k_new, v_new, cache["k"], cache["v"],
+                              pos)
+    y = merge_last(out) @ p["wo"].to(dt)
     return y, {"k": k, "v": v}
 
 
@@ -183,24 +380,22 @@ def cross_attention(
     (``S`` prompt tokens against ``T`` frames) runs K2; a decode step
     (``decode=True``) runs plain ``_sdpa``, as ``attention_decode`` does."""
     dt = x.dtype
-    B, S, _ = x.shape
-    q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = split_last(x @ p["wq"].to(dt), cfg.n_heads, cfg.head_dim)
     if decode:
         out = _sdpa(q, enc_kv["k"], enc_kv["v"], None, cfg.head_dim ** -0.5)
     else:
         out = _flash(cfg, q, enc_kv["k"], enc_kv["v"], causal=False)
-    return out.reshape(B, S, -1) @ p["wo"].to(dt)
+    return merge_last(out) @ p["wo"].to(dt)
 
 
 def encode_cross_kv(cfg: ModelConfig, p: Dict, enc_out: torch.Tensor
                     ) -> Dict:
     """Encoder K/V for the cross-attention, once per request."""
     dt = enc_out.dtype
-    B, T, _ = enc_out.shape
     k = enc_out @ p["wk"].to(dt)
     v = enc_out @ p["wv"].to(dt)
-    return {"k": k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim),
-            "v": v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)}
+    return {"k": split_last(k, cfg.n_kv_heads, cfg.head_dim),
+            "v": split_last(v, cfg.n_kv_heads, cfg.head_dim)}
 
 
 # ----------------------------------------------------------------------
@@ -227,11 +422,18 @@ def init_mla(cfg: ModelConfig, init: Init) -> Dict:
     }
 
 
+def mla_axes(cfg: ModelConfig) -> Dict:
+    return {"wq_a": ("embed", "lora"), "q_a_norm": ("lora",),
+            "wq_b": ("lora", "heads"), "wkv_a": ("embed", "lora"),
+            "kv_a_norm": ("lora",), "wk_b": ("lora", "heads"),
+            "wv_b": ("lora", "heads"), "wo": ("heads", "embed")}
+
+
 def _mla_q(cfg: ModelConfig, p: Dict, x: torch.Tensor, dt):
     m = cfg.mla
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
     cq = rms_norm(x @ p["wq_a"].to(dt), p["q_a_norm"])
-    q = (cq @ p["wq_b"].to(dt)).reshape(*x.shape[:2], cfg.n_heads, qk_head)
+    q = split_last(cq @ p["wq_b"].to(dt), cfg.n_heads, qk_head)
     return q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
 
 
@@ -243,8 +445,8 @@ def mla_full(
     causal: bool = True,
 ) -> Tuple[torch.Tensor, Dict]:
     """MLA prefill -> (output, the *compressed* latents as the cache).
-    Plain ``_sdpa`` for both ``attention_impl`` values (the reference's
-    ``chunked`` form is the same function, summed in blocks)."""
+    Plain ``_sdpa``, or ``_sdpa_chunked`` when
+    ``attention_impl="chunked"``."""
     m = cfg.mla
     dt = x.dtype
     B, S, _ = x.shape
@@ -257,16 +459,23 @@ def mla_full(
     k_rope = ckv_full[..., m.kv_lora_rank:][:, :, None, :]      # [B,S,1,dr]
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
 
-    k_nope = (c_kv @ p["wk_b"].to(dt)).reshape(B, S, H, m.qk_nope_head_dim)
-    v = (c_kv @ p["wv_b"].to(dt)).reshape(B, S, H, m.v_head_dim)
+    k_nope = split_last(c_kv @ p["wk_b"].to(dt), H, m.qk_nope_head_dim)
+    v = split_last(c_kv @ p["wv_b"].to(dt), H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)],
                   dim=-1)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    mask = (causal_mask(S, S, cfg.sliding_window, device=x.device)
-            if causal else None)
-    out = _sdpa(q, k, v, mask, scale)
-    y = out.reshape(B, S, -1) @ p["wo"].to(dt)
+
+    def inner(q, k, v):
+        if cfg.attention_impl == "chunked":
+            return _sdpa_chunked(q, k, v, scale, causal, cfg.sliding_window,
+                                 cfg.attention_block)
+        mask = (causal_mask(S, S, cfg.sliding_window, device=q.device)
+                if causal else None)
+        return _sdpa(q, k, v, mask, scale)
+
+    out = _heads_local(inner, q, k, v)
+    y = merge_last(out) @ p["wo"].to(dt)
     return y, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
 
 
@@ -282,7 +491,6 @@ def mla_decode(
     cache tensors in place."""
     m = cfg.mla
     dt = x.dtype
-    B = x.shape[0]
     H = cfg.n_heads
     q_nope, q_rope = _mla_q(cfg, p, x, dt)                      # [B,1,H,*]
     q_rope = apply_rope(q_rope, pos[:, None], cfg.rope_theta)
@@ -291,25 +499,31 @@ def mla_decode(
     c_new = rms_norm(ckv_full[..., :m.kv_lora_rank], p["kv_a_norm"])[:, 0]
     kr_new = apply_rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :],
                         pos[:, None], cfg.rope_theta)[:, 0, 0]
-    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    b_idx = torch.arange(B, device=x.device)
-    c_kv[b_idx, pos] = c_new
-    k_rope[b_idx, pos] = kr_new
-
     # absorb W_k_b into the query: q_c [B,H,r]
-    wk_b = p["wk_b"].to(dt).reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    wk_b = split_last(p["wk_b"].to(dt), H, m.qk_nope_head_dim)
     q_c = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wk_b)
-    T = c_kv.shape[1]
-    f32 = torch.float32
-    logits = (torch.einsum("bhr,btr->bht", q_c.to(f32), c_kv.to(f32))
-              + torch.einsum("bhd,btd->bht", q_rope[:, 0].to(f32),
-                             k_rope.to(f32))
-              ) * ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
-    mask = torch.where(torch.arange(T, device=x.device)[None, None, :]
-                       <= pos[:, None, None], 0.0, NEG_INF)
-    w = torch.softmax(logits + mask, dim=-1).to(dt)
-    ctx = torch.einsum("bht,btr->bhr", w, c_kv)                 # [B,H,r]
-    wv_b = p["wv_b"].to(dt).reshape(m.kv_lora_rank, H, m.v_head_dim)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+
+    def body(q_c, q_r, c_new, kr_new, c_kv, k_rope, pos):
+        lo, group = _seq_split(c_kv.shape[1])
+        _write_rows(c_kv, c_new, pos, lo, group is not None)
+        _write_rows(k_rope, kr_new, pos, lo, group is not None)
+        f32 = torch.float32
+        logits = (torch.einsum("bhr,btr->bht", q_c.to(f32), c_kv.to(f32))
+                  + torch.einsum("bhd,btd->bht", q_r.to(f32),
+                                 k_rope.to(f32))) * scale
+        ok = _decode_ok(pos, c_kv.shape[1], lo, None)
+        logits = logits + torch.where(ok, 0.0, NEG_INF)[:, None, :]
+        if group is None:
+            w = torch.softmax(logits, dim=-1).to(dt)
+            return torch.einsum("bht,btr->bhr", w, c_kv), c_kv, k_rope
+        ctx = _combine_split_softmax(logits, c_kv, "bht,btr->bhr", group)
+        return ctx.to(dt), c_kv, k_rope
+
+    ctx, c_kv, k_rope = _decode_local(
+        body, q_c, q_rope[:, 0], c_new, kr_new, cache["c_kv"],
+        cache["k_rope"], pos)                                  # [B,H,r]
+    wv_b = split_last(p["wv_b"].to(dt), H, m.v_head_dim)
     out = torch.einsum("bhr,rhd->bhd", ctx, wv_b)               # [B,H,dv]
-    y = out.reshape(B, -1) @ p["wo"].to(dt)
+    y = merge_last(out) @ p["wo"].to(dt)
     return y[:, None, :], {"c_kv": c_kv, "k_rope": k_rope}

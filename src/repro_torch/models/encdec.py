@@ -21,24 +21,31 @@ from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     embed_apply,
+    embedding_axes,
     gelu_mlp_apply,
+    gelu_mlp_axes,
     init_embedding,
     init_gelu_mlp,
     init_layer_norm,
     layer_norm,
+    layer_norm_axes,
     sinusoid_positions,
     unembed_apply,
 )
 from repro_torch.models.params import Init, normal_init
+from repro_torch.models.sharding import compute_view, constrain
 from repro_torch.models.transformer import (
     _layer,
     _stack,
     stack_layers,
+    stack_leading,
     unbind_layers,
 )
 
 #: rows of the learned decoder position table; positions wrap modulo it
 POS_TABLE = 8192
+#: the activations' logical axes (under a sharding policy)
+ACT = ("batch", "seq", "embed_act")
 
 
 def _ln(p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -59,12 +66,19 @@ def init_encoder_block(cfg: ModelConfig, init: Init) -> Dict:
     }
 
 
+def encoder_block_axes(cfg: ModelConfig) -> Dict:
+    return {"ln1": layer_norm_axes(), "attn": attn.attention_axes(cfg),
+            "ln2": layer_norm_axes(), "mlp": gelu_mlp_axes()}
+
+
 def encoder_block_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor
                         ) -> torch.Tensor:
+    p = compute_view(p, encoder_block_axes(cfg))
     y, _ = attn.attention_full(cfg, p["attn"], _ln(p["ln1"], x),
                                positions=None, causal=False)
-    x = x + y
-    return x + gelu_mlp_apply(p["mlp"], _ln(p["ln2"], x), x.dtype)
+    x = x + constrain(y, ACT)
+    return constrain(x + gelu_mlp_apply(p["mlp"], _ln(p["ln2"], x), x.dtype),
+                     ACT)
 
 
 # ----------------------------------------------------------------------
@@ -83,14 +97,24 @@ def init_decoder_block(cfg: ModelConfig, init: Init) -> Dict:
     }
 
 
+def decoder_block_axes(cfg: ModelConfig) -> Dict:
+    return {"ln1": layer_norm_axes(),
+            "self_attn": attn.attention_axes(cfg),
+            "ln_x": layer_norm_axes(),
+            "cross_attn": attn.attention_axes(cfg, cross=True),
+            "ln2": layer_norm_axes(), "mlp": gelu_mlp_axes()}
+
+
 def decoder_block_full(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                        enc_kv: Dict) -> Tuple[torch.Tensor, Dict]:
+    p = compute_view(p, decoder_block_axes(cfg))
     y, cache = attn.attention_full(cfg, p["self_attn"], _ln(p["ln1"], x),
                                    positions=None)
-    x = x + y
-    x = x + attn.cross_attention(cfg, p["cross_attn"], _ln(p["ln_x"], x),
-                                 enc_kv)
-    return x + gelu_mlp_apply(p["mlp"], _ln(p["ln2"], x), x.dtype), cache
+    x = x + constrain(y, ACT)
+    x = x + constrain(attn.cross_attention(cfg, p["cross_attn"],
+                                           _ln(p["ln_x"], x), enc_kv), ACT)
+    y = gelu_mlp_apply(p["mlp"], _ln(p["ln2"], x), x.dtype)
+    return constrain(x + y, ACT), cache
 
 
 def decoder_block_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
@@ -123,6 +147,14 @@ def init_encdec(cfg: ModelConfig, init: Init) -> Dict:
     }
 
 
+def encdec_axes(cfg: ModelConfig) -> Dict:
+    return {"embed": embedding_axes(), "pos_embed": (None, "embed"),
+            "encoder": stack_leading(encoder_block_axes(cfg)),
+            "enc_ln": layer_norm_axes(),
+            "decoder": stack_leading(decoder_block_axes(cfg)),
+            "dec_ln": layer_norm_axes()}
+
+
 def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor
            ) -> torch.Tensor:
     """frames ``[B, T, D]`` (the stub frontend's output) -> encoder
@@ -130,6 +162,7 @@ def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor
     T = frames.shape[1]
     x = frames + sinusoid_positions(T, cfg.d_model, frames.device)[None].to(
         frames.dtype)
+    x = constrain(x, ACT)
     for lp in unbind_layers(params["encoder"]):
         x = encoder_block_apply(cfg, lp, x)
     return _ln(params["enc_ln"], x)
@@ -145,8 +178,9 @@ def cross_kv_all(cfg: ModelConfig, params: Dict, enc_out: torch.Tensor
 def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     x = embed_apply(params["embed"], tokens, cfg.dtype)
-    pe = params["pos_embed"][positions % params["pos_embed"].shape[0]]
-    return x + pe.to(x.dtype)
+    table = compute_view(params, {"pos_embed": (None, "embed")})["pos_embed"]
+    pe = table[positions % table.shape[0]]
+    return constrain(x + pe.to(x.dtype), ACT)
 
 
 def decode_full(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
@@ -163,8 +197,10 @@ def decode_full(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         if collect_cache:
             caches.append(cache)
     x = _ln(params["dec_ln"], x)
-    logits = unembed_apply(params["embed"], x, x.dtype)
-    return logits, (_stack(caches) if collect_cache else None, kv)
+    logits = unembed_apply(compute_view(params["embed"], embedding_axes()), x,
+                           x.dtype)
+    return (constrain(logits, ("batch", "seq", "vocab")),
+            (_stack(caches) if collect_cache else None, kv))
 
 
 def decode_step(cfg: ModelConfig, params: Dict, token: torch.Tensor,

@@ -13,6 +13,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import Init, normal_init, embed_init
+from repro_torch.models.sharding import (
+    compute_view,
+    current_policy,
+    is_dtensor,
+    local_call,
+    mesh_coordinate,
+)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -40,9 +47,17 @@ def init_rms_norm(d: int, dtype, init: Init) -> Dict:
     return {"scale": init.full((d,), 1.0, dtype)}
 
 
+def rms_norm_axes() -> Dict:
+    return {"scale": ("embed",)}
+
+
 def init_layer_norm(d: int, dtype, init: Init) -> Dict:
     return {"scale": init.full((d,), 1.0, dtype),
             "bias": init.full((d,), 0.0, dtype)}
+
+
+def layer_norm_axes() -> Dict:
+    return {"scale": ("embed",), "bias": ("embed",)}
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -111,6 +126,11 @@ def init_swiglu(d_model: int, d_ff: int, dtype, init: Init) -> Dict:
     }
 
 
+def swiglu_axes() -> Dict:
+    return {"gate": ("embed", "mlp"), "up": ("embed", "mlp"),
+            "down": ("mlp", "embed")}
+
+
 def swiglu_apply(p: Dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     h = x @ p["gate"].to(compute_dtype)
     u = x @ p["up"].to(compute_dtype)
@@ -126,6 +146,11 @@ def init_gelu_mlp(d_model: int, d_ff: int, dtype, init: Init) -> Dict:
     }
 
 
+def gelu_mlp_axes() -> Dict:
+    return {"fc1": ("embed", "mlp"), "b1": ("mlp",),
+            "fc2": ("mlp", "embed"), "b2": ("embed",)}
+
+
 def gelu_mlp_apply(p: Dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     """The reference's GELU is the tanh form (``approximate=True``)."""
     h = x @ p["fc1"].to(compute_dtype)
@@ -137,9 +162,36 @@ def init_embedding(vocab: int, d_model: int, dtype, init: Init) -> Dict:
     return {"table": embed_init(init, (vocab, d_model), dtype)}
 
 
+def embedding_axes() -> Dict:
+    return {"table": ("vocab", "embed")}
+
+
 def embed_apply(p: Dict, tokens: torch.Tensor,
                 compute_dtype) -> torch.Tensor:
-    return p["table"][tokens].to(compute_dtype)
+    """Row lookup.  Under a sharding policy the table is gathered over its
+    storage axes and each rank looks up the tokens of its vocab slice
+    (zeros elsewhere): a partial sum over ``model``, reduced where the
+    caller constrains the activations."""
+    table = p["table"]
+    if not is_dtensor(table):
+        return table[tokens].to(compute_dtype)
+    from torch.distributed.tensor import Partial
+
+    table = compute_view(p, embedding_axes())["table"]
+    pl = tuple(table.placements)
+    split = [q.is_shard(0) for q in pl]
+    tok_pl = current_policy().placements_for(tokens.shape, ("batch",) + (
+        None,) * (tokens.dim() - 1))
+    out_pl = tuple(Partial() if s else t for t, s in zip(tok_pl, split))
+
+    def body(tl, tok):
+        V = tl.shape[0]
+        at = tok - (mesh_coordinate("model") * V if any(split) else 0)
+        held = (at >= 0) & (at < V)
+        rows = tl[torch.clamp(at, 0, V - 1)]
+        return torch.where(held[..., None], rows, 0).to(compute_dtype)
+
+    return local_call(body, (table, tokens), (pl, tok_pl), out_pl)
 
 
 def unembed_apply(p: Dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:

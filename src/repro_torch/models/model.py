@@ -27,6 +27,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_apply, rms_norm
 from repro_torch.models.params import Init
 from repro_torch.models.rwkv import rwkv_dims
+from repro_torch.models.sharding import compute_view, constrain
+
+#: the activations' logical axes (under a sharding policy)
+ACT = ("batch", "seq", "embed_act")
 from repro_torch.models.ssm import ssm_dims
 
 
@@ -64,6 +68,15 @@ def _attn_cache(cfg: ModelConfig, n: Optional[int], B: int, T: int,
             "v": _zeros(shape, cfg.dtype, device)}
 
 
+def _attn_cache_axes(cfg: ModelConfig, stacked: bool) -> Dict:
+    lead = ("layers",) if stacked else ()
+    if cfg.mla:
+        return {"c_kv": lead + ("batch", "seq", None),
+                "k_rope": lead + ("batch", "seq", None)}
+    return {"k": lead + ("batch", "seq", "kv_heads", None),
+            "v": lead + ("batch", "seq", "kv_heads", None)}
+
+
 def _ssm_cache(cfg: ModelConfig, n: Optional[int], B: int, device) -> Dict:
     s = cfg.ssm
     d_inner, H, N = ssm_dims(cfg)
@@ -73,6 +86,12 @@ def _ssm_cache(cfg: ModelConfig, n: Optional[int], B: int, device) -> Dict:
                        cfg.dtype, device),
         "ssm": _zeros(lead + (B, H, s.head_dim, N), torch.float32, device),
     }
+
+
+def _ssm_cache_axes(cfg: ModelConfig, stacked: bool) -> Dict:
+    lead = ("layers",) if stacked else ()
+    return {"conv": lead + ("batch", None, "mlp"),
+            "ssm": lead + ("batch", "heads", None, None)}
 
 
 def _rwkv_cache(cfg: ModelConfig, n: Optional[int], B: int, device) -> Dict:
@@ -85,6 +104,13 @@ def _rwkv_cache(cfg: ModelConfig, n: Optional[int], B: int, device) -> Dict:
         "channel": {"x_prev": _zeros(lead + (B, cfg.d_model), cfg.dtype,
                                      device)},
     }
+
+
+def _rwkv_cache_axes(cfg: ModelConfig, stacked: bool) -> Dict:
+    lead = ("layers",) if stacked else ()
+    return {"time": {"S": lead + ("batch", "heads", None, None),
+                     "x_prev": lead + ("batch", "embed_act")},
+            "channel": {"x_prev": lead + ("batch", "embed_act")}}
 
 
 def init_cache(cfg: ModelConfig, B: int, T: int, device="cuda"
@@ -135,6 +161,28 @@ def pad_caches(cfg: ModelConfig, caches: List[Any], T: int) -> List[Any]:
     return out
 
 
+def cache_axes(cfg: ModelConfig) -> List[Any]:
+    """The logical axes of :func:`init_cache`'s tree."""
+    axes: List[Any] = []
+    for run in tf.build_runs(cfg):
+        stacked = tf.stacked(run, cfg)
+        if run.kind == "attn_shared":
+            axes.append(_attn_cache_axes(cfg, False))
+            continue
+        make = {"attn": _attn_cache_axes, "ssm": _ssm_cache_axes,
+                "rwkv": _rwkv_cache_axes}[run.kind]
+        a = make(cfg, stacked)
+        axes.append(a if stacked else [a for _ in range(run.n)])
+    return axes
+
+
+def encdec_cache_axes(cfg: ModelConfig) -> Tuple[Dict, Dict]:
+    """The axes of :meth:`EncDecModel.init_cache`: the stacked
+    self-attention caches and the cross K/V."""
+    kv = ("layers", "batch", None, "kv_heads", None)
+    return _attn_cache_axes(cfg, stacked=True), {"k": kv, "v": kv}
+
+
 # ----------------------------------------------------------------------
 # decoder-only LM
 # ----------------------------------------------------------------------
@@ -151,6 +199,9 @@ class LM:
             return tf.init_stack(self.cfg, Init(generator,
                                                 resolve_device(device)))
 
+    def logical_axes(self) -> Dict:
+        return tf.stack_axes(self.cfg)
+
     def _positions(self, B: int, S: int, device) -> torch.Tensor:
         """``[B, S]``, or ``[B, 3, S]`` under M-RoPE (text: one id in all
         three channels)."""
@@ -161,8 +212,21 @@ class LM:
 
     def _embed(self, params: Dict, tokens, embeds) -> torch.Tensor:
         if embeds is None:
-            return embed_apply(params["embed"], tokens, self.cfg.dtype)
-        return embeds.to(self.cfg.dtype)
+            x = embed_apply(params["embed"], tokens, self.cfg.dtype)
+        else:
+            x = embeds.to(self.cfg.dtype)
+        return constrain(x, ACT)
+
+    def _inputs(self, params: Dict, tokens, embeds, positions
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The embedded inputs and their positions, laid out as the policy
+        asks (the identity without one)."""
+        x = self._embed(params, tokens, embeds)
+        if positions is None:
+            positions = self._positions(*x.shape[:2], x.device)
+        positions = constrain(positions, ("batch",) + (None,) * (
+            positions.dim() - 2) + ("seq",))
+        return x, positions
 
     def forward_hidden(self, params: Dict,
                        tokens: Optional[torch.Tensor] = None,
@@ -172,10 +236,7 @@ class LM:
         """Whole-sequence forward over ``tokens [B, S]`` or the VLM stub's
         ``embeds [B, S, D]`` -> (final hidden states [B,S,D] before the
         norm, aux_loss), under autograd."""
-        x = self._embed(params, tokens, embeds)
-        B, S = x.shape[:2]
-        if positions is None:
-            positions = self._positions(B, S, x.device)
+        x, positions = self._inputs(params, tokens, embeds, positions)
         h, aux, _ = tf.stack_full(self.cfg, params, x, positions)
         return h, aux
 
@@ -202,12 +263,12 @@ class LM:
         """DeepSeek MTP head: predict token t+2 from (h_t, emb(token
         t+1))."""
         cfg = self.cfg
-        emb = embed_apply(params["embed"], next_tokens, cfg.dtype)
-        h = torch.cat([hidden, emb], dim=-1) @ params["mtp"]["proj"].to(
-            cfg.dtype)
-        B, S = h.shape[:2]
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=h.device)[None].expand(B, S)
+        emb = self._embed(params, next_tokens, None)
+        h = torch.cat([hidden, emb], dim=-1) @ compute_view(
+            params["mtp"], {"proj": ("embed", None)})["proj"].to(cfg.dtype)
+        h = constrain(h, ACT)
+        positions = constrain(self._positions(*h.shape[:2], h.device),
+                              ("batch", "seq"))
         h, _, _ = tf.block_full(cfg, "attn",
                                 "moe" if cfg.moe is not None else "dense",
                                 params["mtp"]["block"], h, positions, None)
@@ -221,10 +282,8 @@ class LM:
         """-> (last-token logits [B,V], caches).  Attention caches come back
         sized to the prompt; pad them with :func:`pad_caches`."""
         cfg = self.cfg
-        x = self._embed(params, tokens, embeds)
-        B, S = x.shape[:2]
-        h, _, caches = tf.stack_full(cfg, params, x,
-                                     self._positions(B, S, x.device),
+        x, positions = self._inputs(params, tokens, embeds, None)
+        h, _, caches = tf.stack_full(cfg, params, x, positions,
                                      collect_cache=True)
         logits = tf.lm_logits(cfg, params, h[:, -1:, :])[:, 0]
         return logits, caches
@@ -236,12 +295,15 @@ class LM:
         """One token ``[B]`` at positions ``pos [B]`` -> (logits [B,V],
         caches).  The caches are updated in place and returned."""
         cfg = self.cfg
-        x = embed_apply(params["embed"], token[:, None], cfg.dtype)
+        x = self._embed(params, token[:, None], None)
         x, new_caches = tf.stack_decode(cfg, params, x, pos, caches)
         return tf.lm_logits(cfg, params, x)[:, 0], new_caches
 
     def init_cache(self, B: int, T: int, device="cuda") -> List[Any]:
         return init_cache(self.cfg, B, T, device)
+
+    def cache_axes(self) -> List[Any]:
+        return cache_axes(self.cfg)
 
 
 # ----------------------------------------------------------------------
@@ -261,6 +323,12 @@ class EncDecModel:
         with torch.no_grad():
             return encdec_mod.init_encdec(
                 self.cfg, Init(generator, resolve_device(device)))
+
+    def logical_axes(self) -> Dict:
+        return encdec_mod.encdec_axes(self.cfg)
+
+    def cache_axes(self) -> Tuple[Dict, Dict]:
+        return encdec_cache_axes(self.cfg)
 
     def forward_train(self, params: Dict, frames: torch.Tensor,
                       tokens: torch.Tensor

@@ -13,8 +13,9 @@ no Pallas kernel for it).  The loop carries only ``r_t . S_{t-1}`` and the
 state update, two launches a step; the bonus term ``(r_t . (u * k_t))
 v_t`` is computed for all steps at once, and the outer products
 ``k_t v_t^T`` a block of ``_BLOCK`` steps at a time, so their memory stays
-bounded on long prompts.  Decode carries ``(S, x_prev)``: a constant-size
-state.
+bounded on long prompts.  Under a sharding policy the loop runs on each
+rank's batch and head shards (``local_call``: DTensor has no rule for a
+loop).  Decode carries ``(S, x_prev)``: a constant-size state.
 """
 
 from __future__ import annotations
@@ -26,6 +27,13 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Init, normal_init
+from repro_torch.models.sharding import (
+    constrain,
+    current_policy,
+    local_call,
+    merge_last,
+    split_last,
+)
 
 MIX_NAMES = ("w", "k", "v", "r", "g")
 #: time steps whose outer products k_t v_t^T are formed at once
@@ -60,6 +68,18 @@ def init_rwkv_time(cfg: ModelConfig, init: Init) -> Dict:
     }
 
 
+def rwkv_time_axes(cfg: ModelConfig) -> Dict:
+    return {
+        "mu_x": ("embed",), "mix_w1": ("embed", None),
+        "mix_w2": (None, None, "embed"), "mu": (None, "embed"),
+        "wr": ("embed", "mlp"), "wk": ("embed", "mlp"),
+        "wv": ("embed", "mlp"), "wg": ("embed", "mlp"),
+        "wo": ("mlp", "embed"), "w0": ("embed",),
+        "decay_w1": ("embed", None), "decay_w2": (None, "embed"),
+        "u": ("embed",), "ln_scale": ("embed",), "ln_bias": ("embed",),
+    }
+
+
 def init_rwkv_channel(cfg: ModelConfig, init: Init) -> Dict:
     d, f = cfg.d_model, cfg.d_ff
     dt = cfg.param_dtype
@@ -70,6 +90,12 @@ def init_rwkv_channel(cfg: ModelConfig, init: Init) -> Dict:
         "wv": normal_init(init, (f, d), dt),
         "wr": normal_init(init, (d, d), dt),
     }
+
+
+def rwkv_channel_axes(cfg: ModelConfig) -> Dict:
+    return {"mu_k": ("embed",), "mu_r": ("embed",),
+            "wk": ("embed", "mlp"), "wv": ("mlp", "embed"),
+            "wr": ("embed", "mlp")}
 
 
 def _shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
@@ -85,8 +111,12 @@ def _ddlerp(p: Dict, x: torch.Tensor, x_prev: torch.Tensor,
     xx = x_prev - x
     xxx = x + xx * p["mu_x"].to(dt_c)
     h = torch.tanh(xxx @ p["mix_w1"].to(dt_c))             # [B,L,5*G]
-    G = h.shape[-1] // 5
-    h5 = h.reshape(*h.shape[:-1], 5, G)
+    # split over the batch only, its gradient too (the constraint's
+    # backward): split over model along the tokens, that gradient would
+    # reach mix_w1's matmul as a strided shard of the flattened (pod,
+    # data) batch, which DTensor cannot redistribute
+    h5 = constrain(split_last(h, 5, h.shape[-1] // 5),
+                   ("batch", None, None, None))
     mix = torch.einsum("blcg,cgd->cbld", h5, p["mix_w2"].to(dt_c))
     return [x + xx * (p["mu"][i].to(dt_c) + mix[i])
             for i in range(len(MIX_NAMES))]
@@ -96,12 +126,11 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 H: int) -> torch.Tensor:
     """Per-head layer norm over the head dim: eps 64e-5, population
     variance, fp32 inside."""
-    B, L, D = y.shape
-    yh = y.reshape(B, L, H, D // H).to(torch.float32)
+    yh = split_last(y, H, y.shape[-1] // H).to(torch.float32)
     mu = yh.mean(-1, keepdim=True)
     var = yh.var(-1, keepdim=True, correction=0)
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)
-    out = (yh.reshape(B, L, D) * scale.to(torch.float32)
+    out = (merge_last(yh) * scale.to(torch.float32)
            + bias.to(torch.float32))
     return out.to(y.dtype)
 
@@ -113,13 +142,16 @@ def _wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``S [B, H, N, N]`` -> (y ``[B, L, H, N]``, final S)."""
     L = r.shape[1]
     bonus = (r * u * k).sum(-1, keepdim=True) * v           # [B,L,H,N]
+    # one unbind a tensor, not an index a step: the backward of r[:, t]
+    # would make a zero tensor of all L steps for every step
+    rs, ws = r.unbind(1), w.unbind(1)
     ys = []
     for t0 in range(0, L, _BLOCK):
         t1 = min(t0 + _BLOCK, L)
-        kv = k[:, t0:t1, :, :, None] * v[:, t0:t1, :, None, :]
+        kv = (k[:, t0:t1, :, :, None] * v[:, t0:t1, :, None, :]).unbind(1)
         for t in range(t0, t1):
-            ys.append(torch.matmul(r[:, t, :, None, :], S)[:, :, 0])
-            S = torch.addcmul(kv[:, t - t0], w[:, t, :, :, None], S)
+            ys.append(torch.matmul(rs[t][:, :, None, :], S)[:, :, 0])
+            S = torch.addcmul(kv[t - t0], ws[t][:, :, :, None], S)
     return torch.stack(ys, dim=1) + bonus, S
 
 
@@ -132,7 +164,7 @@ def rwkv_time_full(
     dt_c = x.dtype
     f32 = torch.float32
     H, N = rwkv_dims(cfg)
-    B, L, D = x.shape
+    B = x.shape[0]
     x_prev = None if state is None else state["x_prev"]
     xw, xk, xv, xr, xg = _ddlerp(p, x, _shift(x, x_prev), dt_c)
 
@@ -144,13 +176,21 @@ def rwkv_time_full(
     w = torch.exp(-torch.exp(p["w0"].to(f32) + lora.to(f32)))  # (0, 1)
 
     def heads(t):
-        return t.reshape(B, L, H, N).to(f32)
+        return split_last(t, H, N).to(f32)
 
     s0 = (torch.zeros(B, H, N, N, dtype=f32, device=x.device)
           if state is None else state["S"].to(f32))
-    y, S_fin = _wkv(heads(r), heads(k), heads(v), heads(w),
-                    p["u"].to(f32).reshape(H, N), s0)
-    y = y.reshape(B, L, D).to(dt_c)
+    args = (heads(r), heads(k), heads(v), heads(w),
+            split_last(p["u"].to(f32), H, N), s0)
+    pol = current_policy()
+    if pol is None:
+        y, S_fin = _wkv(*args)
+    else:
+        hd = pol.placements_for(args[0].shape, ("batch", None, "heads", None))
+        st = pol.placements_for(s0.shape, ("batch", "heads", None, None))
+        u = pol.placements_for((H, N), ("heads", None))
+        y, S_fin = local_call(_wkv, args, (hd,) * 4 + (u, st), (hd, st))
+    y = merge_last(y).to(dt_c)
     y = _group_norm(y, p["ln_scale"], p["ln_bias"], H) * g
     return y @ p["wo"].to(dt_c), {"S": S_fin, "x_prev": x[:, -1, :]}
 

@@ -7,8 +7,10 @@ Port of ``src/repro/models/ssm.py``.  Per head h, with scalar decay:
 
 with ``a_t = exp(dt_t · A)``.  Prefill, from a zero or a given state, runs
 the chunked SSD scan through ``kernels.ssm_scan.ssd_scan``: the CUDA kernel
-(K3) on a CUDA tensor, the plain chunked scan on a CPU tensor.  Decode
-keeps the O(1)-per-token recurrence in plain PyTorch.
+(K3) on a CUDA tensor, the plain chunked scan on a CPU tensor.  Under a
+sharding policy the scan runs on each rank's shards (batch over the
+batch axes, heads over ``model``).  Decode keeps the O(1)-per-token
+recurrence in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -22,6 +24,13 @@ from repro_torch.kernels.ssm_scan.ops import ssd_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import Init, normal_init
+from repro_torch.models.sharding import (
+    constrain,
+    current_policy,
+    local_call,
+    merge_last,
+    split_last,
+)
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -51,6 +60,13 @@ def init_ssm(cfg: ModelConfig, init: Init) -> Dict:
         "norm": init.full((d_inner,), 1.0, dt),
         "out_proj": normal_init(init, (d_inner, d), dt, fan_in=d_inner),
     }
+
+
+def ssm_axes(cfg: ModelConfig) -> Dict:
+    return {"in_proj": ("embed", "mlp"), "conv_w": ("conv", None),
+            "conv_b": (None,), "a_log": (None,), "dt_bias": (None,),
+            "d_skip": (None,), "norm": ("mlp",),
+            "out_proj": ("mlp", "embed")}
 
 
 def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
@@ -86,7 +102,9 @@ def _mixer_inputs(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     """in_proj, conv and the decay: ``(z, xs, Bm, Cm, dt_v, a, new_conv)``."""
     dt_c = x.dtype
     d_inner, H, N = ssm_dims(cfg)
-    zxbcdt = x @ p["in_proj"].to(dt_c)
+    # whole over model: z, xBC and dt split the projection where its
+    # shards do not
+    zxbcdt = constrain(x @ p["in_proj"].to(dt_c), ("batch", "seq", None))
     z, xBC, dt_raw = _split_proj(cfg, zxbcdt)
     xBC, new_conv = _causal_conv(xBC, p["conv_w"].to(dt_c),
                                  p["conv_b"].to(dt_c), conv_state)
@@ -102,11 +120,32 @@ def _mixer_inputs(cfg: ModelConfig, p: Dict, x: torch.Tensor,
 
 def _mixer_output(cfg: ModelConfig, p: Dict, y: torch.Tensor,
                   xh: torch.Tensor, z: torch.Tensor, dt_c) -> torch.Tensor:
-    d_inner = ssm_dims(cfg)[0]
     y = y + xh.to(torch.float32) * p["d_skip"].to(torch.float32)[:, None]
-    y = y.reshape(*z.shape[:2], d_inner).to(dt_c)
+    y = merge_last(y).to(dt_c)
     y = rms_norm(y * F.silu(z), p["norm"])
     return y @ p["out_proj"].to(dt_c)
+
+
+def _scan(xin, a, Bm, Cm, chunk: int, init_state):
+    """``ssd_scan``; under a policy on each rank's batch and head
+    shards."""
+    pol = current_policy()
+    args = (xin, a, Bm, Cm) + (() if init_state is None else (init_state,))
+
+    def body(xin, a, Bm, Cm, *s0):
+        return ssd_scan(xin, a, Bm, Cm, chunk,
+                        init_state=s0[0] if s0 else None)
+
+    if pol is None:
+        return body(*args)
+    B, _, H, P = xin.shape
+    N = Bm.shape[-1]
+    heads = pol.placements_for(xin.shape, ("batch", None, "heads", None))
+    st = pol.placements_for((B, H, P, N), ("batch", "heads", None, None))
+    pl = (heads, pol.placements_for(a.shape, ("batch", None, "heads")),
+          pol.placements_for(Bm.shape, ("batch", None, None)),
+          pol.placements_for(Cm.shape, ("batch", None, None)), st)
+    return local_call(body, args, pl[:len(args)], (heads, st))
 
 
 def ssm_full(
@@ -121,11 +160,11 @@ def ssm_full(
     H = ssm_dims(cfg)[1]
     conv_state = None if state is None else state["conv"]
     z, xs, Bm, Cm, dt_v, a, new_conv = _mixer_inputs(cfg, p, x, conv_state)
-    xh = xs.reshape(*xs.shape[:2], H, s.head_dim)
+    xh = split_last(xs, H, s.head_dim)
     xin = xh.to(torch.float32) * dt_v[..., None]
     chunk = min(s.chunk, xs.shape[1])
-    y, final = ssd_scan(xin, a, Bm, Cm, chunk,
-                        init_state=None if state is None else state["ssm"])
+    y, final = _scan(xin, a, Bm, Cm, chunk,
+                     None if state is None else state["ssm"])
     out = _mixer_output(cfg, p, y, xh, z, dt_c)
     return out, {"conv": new_conv, "ssm": final.to(torch.float32)}
 
@@ -143,7 +182,7 @@ def ssm_decode(
     z, xs, Bm, Cm, dt_v, a, new_conv = _mixer_inputs(cfg, p, x,
                                                      state["conv"])
     Bm, Cm, dt_v, a = Bm[:, 0], Cm[:, 0], dt_v[:, 0], a[:, 0]
-    xh = xs.reshape(xs.shape[0], H, s.head_dim).to(torch.float32)
+    xh = split_last(xs[:, 0], H, s.head_dim).to(torch.float32)
     xin = xh * dt_v[..., None]                          # [B,H,P]
     s_new = (state["ssm"] * a[:, :, None, None]
              + xin[..., None] * Bm.to(torch.float32)[:, None, None, :])

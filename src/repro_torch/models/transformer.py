@@ -12,8 +12,11 @@ checkpoints the block and recomputes it in the backward pass, ``"dots"``
 does the same but keeps the outputs of ``aten.mm`` (the products with no
 batch dims, which ``checkpoint_dots_with_no_batch_dims`` keeps), and
 ``"none"`` saves everything.  As in the reference, the shared attention
-block of zamba2 runs outside any remat.  ``compute_view`` and the
-sharding constraints have no counterpart on one card.
+block of zamba2 runs outside any remat.  Under a sharding policy each
+block gathers its weights over the storage axes first (``compute_view``,
+the reference's FSDP just-in-time gather) and constrains its output to
+the activation layout (``constrain``), as the reference's does; the
+remat recompute re-installs the policy (``_with_policy``).
 """
 
 from __future__ import annotations
@@ -35,14 +38,23 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    embedding_axes,
     init_embedding,
     init_rms_norm,
     init_swiglu,
     rms_norm,
+    rms_norm_axes,
     swiglu_apply,
+    swiglu_axes,
     unembed_apply,
 )
 from repro_torch.models.params import Init, normal_init
+from repro_torch.models.sharding import (
+    compute_view,
+    constrain,
+    current_policy,
+    use_policy,
+)
 from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 
 
@@ -106,6 +118,31 @@ def init_block(cfg: ModelConfig, kind: str, variant: str,
     raise ValueError(f"unknown block kind {kind!r}")
 
 
+def block_axes(cfg: ModelConfig, kind: str, variant: str) -> Dict:
+    if kind in ("attn", "attn_shared"):
+        return {"ln1": rms_norm_axes(), "ln2": rms_norm_axes(),
+                "attn": (attn.mla_axes(cfg) if cfg.mla
+                         else attn.attention_axes(cfg)),
+                "mlp": (moe_mod.moe_axes(cfg) if variant == "moe"
+                        else swiglu_axes())}
+    if kind == "ssm":
+        return {"ln1": rms_norm_axes(), "ssm": ssm_mod.ssm_axes(cfg)}
+    if kind == "rwkv":
+        return {"ln1": rms_norm_axes(),
+                "time": rwkv_mod.rwkv_time_axes(cfg),
+                "ln2": rms_norm_axes(),
+                "channel": rwkv_mod.rwkv_channel_axes(cfg)}
+    raise ValueError(kind)
+
+
+def stack_leading(axes: Any, name: Optional[str] = "layers") -> Any:
+    """An axes tree with a leading ``name`` axis on every leaf (stacked
+    ``[n, ...]`` leaves)."""
+    if isinstance(axes, dict):
+        return {k: stack_leading(v, name) for k, v in axes.items()}
+    return (name,) + tuple(axes)
+
+
 def block_full(
     cfg: ModelConfig,
     kind: str,
@@ -116,31 +153,35 @@ def block_full(
     state: Optional[Any],
 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Whole-sequence block application -> (x, new_state, aux_loss)."""
+    p = compute_view(p, block_axes(cfg, kind, variant))  # FSDP JIT gather
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    act = ("batch", "seq", "embed_act")
     if kind in ("attn", "attn_shared"):
         h = rms_norm(x, p["ln1"]["scale"])
         full = attn.mla_full if cfg.mla else attn.attention_full
         y, cache = full(cfg, p["attn"], h, positions)
-        x = x + y
+        # the mixer's partial sums over model, reduced before the residual
+        # (else the MLP would run whole on partial inputs)
+        x = x + constrain(y, act)
         h = rms_norm(x, p["ln2"]["scale"])
         if variant == "moe":
             y, aux = moe_mod.moe_apply(cfg, p["mlp"], h, x.dtype)
         else:
             y = swiglu_apply(p["mlp"], h, x.dtype)
-        return x + y, cache, aux
+        return constrain(x + y, act), cache, aux
     if kind == "ssm":
         h = rms_norm(x, p["ln1"]["scale"])
         y, new_state = ssm_mod.ssm_full(cfg, p["ssm"], h, state)
-        return x + y, new_state, aux
+        return constrain(x + y, act), new_state, aux
     if kind == "rwkv":
         h = rms_norm(x, p["ln1"]["scale"])
         y, t_new = rwkv_mod.rwkv_time_full(
             cfg, p["time"], h, None if state is None else state["time"])
-        x = x + y
+        x = x + constrain(y, act)
         h = rms_norm(x, p["ln2"]["scale"])
         y, c_new = rwkv_mod.rwkv_channel_full(
             cfg, p["channel"], h, None if state is None else state["channel"])
-        return x + y, {"time": t_new, "channel": c_new}, aux
+        return constrain(x + y, act), {"time": t_new, "channel": c_new}, aux
     raise ValueError(kind)
 
 
@@ -266,6 +307,25 @@ def init_stack(cfg: ModelConfig, init: Init) -> Dict:
     return params
 
 
+def stack_axes(cfg: ModelConfig) -> Dict:
+    runs = build_runs(cfg)
+    ax: Dict[str, Any] = {"embed": embedding_axes(),
+                          "final_norm": rms_norm_axes(), "runs": []}
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = {"w": ("embed", "vocab")}
+    if any(r.kind == "attn_shared" for r in runs):
+        ax["shared_block"] = block_axes(cfg, "attn_shared", "dense")
+    for run in runs:
+        ax["runs"].append({} if run.kind == "attn_shared" else stack_leading(
+            block_axes(cfg, run.kind, run.variant)))
+    if cfg.mtp_depth > 0:
+        ax["mtp"] = {"proj": ("embed", None),
+                     "block": block_axes(cfg, "attn", "moe"
+                                         if cfg.moe is not None else "dense"),
+                     "norm": rms_norm_axes()}
+    return ax
+
+
 # ----------------------------------------------------------------------
 # stack apply
 # ----------------------------------------------------------------------
@@ -280,10 +340,26 @@ def _dots_contexts():
     return create_selective_checkpoint_contexts(_save_mm)
 
 
+def _with_policy(fn: Callable) -> Callable:
+    """``fn`` under the sharding policy active now.  The remat recompute
+    runs on autograd's device thread, where the policy's context variable
+    is unset: without it, the recomputed block would hand DTensors to the
+    kernels."""
+    policy = current_policy()
+    if policy is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with use_policy(policy):
+            return fn(*args, **kwargs)
+    return run
+
+
 def _remat(cfg: ModelConfig, fn: Callable) -> Callable:
     """``fn`` under ``cfg.remat_policy``; as it is without autograd."""
     if cfg.remat_policy == "none" or not torch.is_grad_enabled():
         return fn
+    fn = _with_policy(fn)
     if cfg.remat_policy == "dots":
         return functools.partial(checkpoint, fn, use_reentrant=False,
                                  context_fn=_dots_contexts)
@@ -360,5 +436,11 @@ def lm_logits(cfg: ModelConfig, params: Dict, x: torch.Tensor
               ) -> torch.Tensor:
     h = rms_norm(x, params["final_norm"]["scale"])
     if cfg.tie_embeddings:
-        return unembed_apply(params["embed"], h, x.dtype)
-    return h @ params["lm_head"]["w"].to(x.dtype)
+        embed = compute_view(params["embed"], embedding_axes())
+        logits = unembed_apply(embed, h, x.dtype)
+    else:
+        head = compute_view(params["lm_head"], {"w": ("embed", "vocab")})
+        logits = h @ head["w"].to(x.dtype)
+    # keep the vocab dim sharded over `model` (replicated [B,S,V] logits
+    # per rank would dominate the step's memory)
+    return constrain(logits, ("batch", "seq", "vocab"))

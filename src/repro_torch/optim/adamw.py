@@ -44,8 +44,8 @@ class AdamWConfig:
 
 
 def adamw_init(params: PyTree) -> PyTree:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):       # a DTensor's state is a DTensor of its layout
+        return torch.zeros_like(p, dtype=torch.float32)
 
     device = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),

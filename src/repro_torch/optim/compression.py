@@ -7,8 +7,8 @@ inside its jitted step, where XLA turns ``/ 127`` into a product with
 fp32 ``1/127``; the port computes that compiled form, so the int8 trees
 and scales equal the jitted reference's bit for bit (an eager call of the
 reference divides, and its scale can differ in the last bit).  The
-pod-axis step that uses them (``make_compressed_train_step``) needs a mesh
-and is not ported.
+pod-axis step that uses them is ``train/step.py``'s
+``make_compressed_train_step``.
 """
 
 from __future__ import annotations

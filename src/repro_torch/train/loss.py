@@ -1,9 +1,10 @@
 """Losses: next-token cross entropy (+ the MoE aux loss, + DeepSeek MTP).
 
-Port of ``src/repro/train/loss.py``.  The target logit is a ``gather``:
-the reference's masked reduction (``sharded_safe``, which keeps XLA from
-materialising full-vocab logits per device) adds one nonzero term to
-zeros, so both give the same value, and one card has no vocab shards.
+Port of ``src/repro/train/loss.py``.  The target logit is a ``gather``
+on a plain tensor; on a DTensor (vocab split over ``model``) it is the
+reference's masked reduction (``sharded_safe``), which reduces over the
+vocab shards where they lie.  Both add one nonzero term to zeros, so
+they give the same value.
 """
 
 from __future__ import annotations
@@ -14,19 +15,51 @@ import torch
 
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import local_call, mesh_coordinate, shard_sum
+
+
+def _sharded_lse_target(z, targets):
+    """Log-sum-exp and target logit of DTensor logits whose vocab dim may
+    be split over ``model``: each rank sums over its own vocab slice
+    (``local_call``) into partial sums, so neither pass ever holds a
+    whole-vocab tensor.  The max is a constant shift (no gradient)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    last = z.dim() - 1
+    zp = tuple(z.placements)
+    split = [p.is_shard(last) for p in zp]
+    whole = tuple(Replicate() if s else p for p, s in zip(zp, split))
+    out = tuple(Partial() if s else p for p, s in zip(zp, split))
+    m = z.detach().amax(dim=-1, keepdim=True)
+    m = m.redistribute(z.device_mesh, whole)
+
+    def sumexp(zl, ml):
+        return torch.exp(zl - ml).sum(-1)
+
+    def target(zl, tl):
+        lo = mesh_coordinate("model") * zl.shape[-1] if any(split) else 0
+        iota = lo + torch.arange(zl.shape[-1], device=zl.device)
+        return torch.where(iota == tl[..., None], zl, 0.0).sum(-1)
+
+    lse = torch.log(local_call(sumexp, (z, m), (zp, whole), out)) + m[..., 0]
+    tgt = local_call(target, (z, targets), (zp, whole), out)
+    return lse, tgt
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean CE in fp32.  logits [..., V], targets [...] int."""
     z = logits.to(torch.float32)
-    lse = torch.logsumexp(z, dim=-1)
-    tgt = torch.gather(z, -1, targets[..., None].to(torch.int64))[..., 0]
+    if hasattr(z, "device_mesh"):
+        lse, tgt = _sharded_lse_target(z, targets)
+    else:
+        lse = torch.logsumexp(z, dim=-1)
+        tgt = torch.gather(z, -1, targets[..., None].to(torch.int64))[..., 0]
     nll = lse - tgt
     if mask is None:
-        return nll.mean()
+        return shard_sum(nll) / nll.numel()
     m = mask.to(torch.float32)
-    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return shard_sum(nll * m) / torch.clamp(m.sum(), min=1.0)
 
 
 def lm_loss(

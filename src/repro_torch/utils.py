@@ -52,39 +52,43 @@ def owner_devices(devices: Optional[Sequence[Any]] = None
 # pytrees
 # ----------------------------------------------------------------------
 
+def _flatten_into(t: PyTree, leaves: List[Any]) -> Any:
+    if t is None:
+        return ("none",)
+    if isinstance(t, dict):
+        keys = sorted(t)
+        return ("dict", tuple(keys),
+                tuple(_flatten_into(t[k], leaves) for k in keys))
+    if isinstance(t, (tuple, list)):
+        return (type(t).__name__,
+                tuple(_flatten_into(x, leaves) for x in t))
+    leaves.append(t)
+    return ("leaf",)
+
+
 def tree_flatten(tree: PyTree) -> Tuple[List[Any], Any]:
-    """``(leaves, treedef)``; the treedef is a plain nested structure."""
+    """``(leaves, treedef)``; the treedef is a plain nested structure.  A
+    module-level walk, not a recursive closure: a closure that names
+    itself is a reference cycle, which would keep the leaves alive until
+    the garbage collector runs."""
     leaves: List[Any] = []
+    return leaves, _flatten_into(tree, leaves)
 
-    def walk(t):
-        if t is None:
-            return ("none",)
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return ("dict", tuple(keys), tuple(walk(t[k]) for k in keys))
-        if isinstance(t, (tuple, list)):
-            return (type(t).__name__, tuple(walk(x) for x in t))
-        leaves.append(t)
-        return ("leaf",)
 
-    return leaves, walk(tree)
+def _build(d: Any, it) -> PyTree:
+    kind = d[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    items = [_build(c, it) for c in d[1]]
+    return tuple(items) if kind == "tuple" else items
 
 
 def tree_unflatten(treedef: Any, leaves: Sequence[Any]) -> PyTree:
-    it = iter(leaves)
-
-    def build(d):
-        kind = d[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        items = [build(c) for c in d[1]]
-        return tuple(items) if kind == "tuple" else items
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree: PyTree) -> List[Any]:
@@ -97,21 +101,21 @@ def tree_leaves_with_path(tree: PyTree) -> List[Tuple[Tuple[Any, ...], Any]]:
     ``jax.tree_util.tree_flatten_with_path``'s ``DictKey.key`` and
     ``SequenceKey.idx`` do."""
     out: List[Tuple[Tuple[Any, ...], Any]] = []
-
-    def walk(t, path):
-        if t is None:
-            return
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], path + (k,))
-        elif isinstance(t, (tuple, list)):
-            for i, x in enumerate(t):
-                walk(x, path + (i,))
-        else:
-            out.append((path, t))
-
-    walk(tree, ())
+    _paths_into(tree, (), out)
     return out
+
+
+def _paths_into(t: PyTree, path: Tuple[Any, ...], out: List) -> None:
+    if t is None:
+        return
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _paths_into(t[k], path + (k,), out)
+    elif isinstance(t, (tuple, list)):
+        for i, x in enumerate(t):
+            _paths_into(x, path + (i,), out)
+    else:
+        out.append((path, t))
 
 
 def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree) -> PyTree:

@@ -48,3 +48,61 @@ def port_model_config(cfg):
             v = getattr(C, type(v).__name__)(**dataclasses.asdict(v))
         kw[f.name] = v
     return C.ModelConfig(**kw)
+
+
+# ----------------------------------------------------------------------
+# several ranks on the CPU (gloo), for the sharded step's tests
+# ----------------------------------------------------------------------
+
+def _rank_main(rank, world, store_path, target, args, queue):
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store_path, world), rank=rank,
+            world_size=world)
+        queue.put((rank, "ok", target(rank, *args)))
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(target, world: int, tmp_path, timeout: float, *args):
+    """``target(rank, *args)`` in ``world`` spawned processes joined in one
+    gloo group (a ``FileStore`` under ``tmp_path``, one intra-op thread
+    each) -> the results by rank.  A rank that fails, or a run that
+    outlasts ``timeout`` seconds, fails the caller."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store = str(tmp_path / "store")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, store, target, args, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in range(world):
+            try:
+                rank, status, value = q.get(timeout=timeout)
+            except queue_mod.Empty:
+                raise AssertionError(
+                    f"ranks did not finish in {timeout} s") from None
+            if status != "ok":
+                raise AssertionError(f"rank {rank} failed:\n{value}")
+            out[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+    return out
