@@ -6,11 +6,13 @@
 1. Prints the card's name and power limit.
 2. Builds the five CUDA libraries side by side (one nvcc each, sm_90a):
    K1 fused fold (register-path kernels for G <= 8, a shared-memory one
-   for larger G), K2 flash attention in its two variants (``wgmma`` for
-   bf16/f16 at head dims 64 and 128, ``simt`` for the rest), K3 SSD scan
-   in its two variants (``wgmma`` for bf16 B/C at P = N = 64 and chunk
-   128, ``simt`` for the rest), and logs each kernel's registers and
-   spills.
+   for larger G), K2 flash attention in its three variants (at head dims
+   64 and 128 ``wgmma`` for bf16/f16 and ``wgmma_f32`` for f32, the
+   split-precision instance; ``simt`` for head dims 16 and 32), K3 SSD
+   scan in its three variants (at P = N = 64 and a configured chunk of
+   128, for any L, ``wgmma`` for bf16 B/C and ``wgmma_split`` for f32/f16
+   B/C; ``simt`` for the narrower dims and chunks), and logs each
+   kernel's registers and spills.
 3. Holds K1 against its plain PyTorch version and the float64 NumPy oracle
    over bf16/f32/i32/bool payloads, G in {1, 2, 7, 64, the kernel's
    limit}, ragged and one-column shapes and NaN/Inf in masked-off rows,
@@ -21,15 +23,17 @@
 4. Holds K2 and K3 against their plain versions (and K3 against the
    literal recurrence) on the reference kernel tests' shapes and at the
    serving shapes; K2 in f32, bf16 and f16 at head dims 64 and 128 (and
-   qwen3-8b's GQA heads at D 128, and phase (i)'s calls: mixtral's window
-   of 4096 over 6144 tokens, qwen2-vl's 28 over 4 heads, whisper's
-   encoder over 1500 frames, its cross-attention and its decoder), K3
-   with f32 and bf16 B/C, from a zero
-   and from a random initial state, checking which variant ran.  Then one
-   Mamba2 layer of zamba2-1.2b at full width runs ``ssm_full`` over the
-   serving prompt and over its two halves, the second from the first's
-   returned state, in bf16 (wgmma) and fp32 (simt): the chained scans
-   must equal one scan over the same steps.
+   qwen3-8b's GQA heads at D 128, and phase (i)'s calls in bf16 and f32:
+   mixtral's window of 4096 over 6144 tokens, qwen2-vl's 28 over 4
+   heads, whisper's encoder over 1500 frames, its cross-attention and its
+   decoder) and at head dims 16 and 32 (simt), K3 with f32, f16 and bf16
+   B/C at P = N = 64 (incl. L = 1, 12, 64, 100, shorter than a chunk) and
+   at the narrower dims and chunks (simt), from a zero and from a random
+   initial state, checking which variant ran.  Then one Mamba2 layer of
+   zamba2-1.2b at full width runs ``ssm_full`` over the serving prompt
+   and over its two halves, the second from the first's returned state,
+   in bf16 (wgmma) and fp32 (wgmma_split): the chained scans must equal
+   one scan over the same steps.
 5. Drives the population path at full size: the paper's 4,490-subject
    population (Table 3), one float32 91x109x91 MNI152 2 mm volume per
    subject, on ``GridSession(devices=["cuda:0"] * 4)`` with the paper's two
@@ -57,8 +61,13 @@
    by wrapper, by variant and by the profiler's kernel names, and holds
    the prefill and every decode step's logits against the same model run
    with the kernels' plain versions on the same token stream (bf16
-   activations: the wgmma variants of K2 and K3; fp32: their simt
-   variants).
+   activations: the wgmma variants of K2 and K3; fp32: wgmma_f32 and
+   wgmma_split, with no simt launch).  A 12-token prefill (the serving
+   launcher's default prompt, shorter than one chunk) through the same
+   engine in bf16 takes K3's wgmma variant 32 times, and its logits and
+   those of an fp32 12-token prefill (wgmma_split) are held to the plain
+   kernels'.  zamba2-1.2b's reduced config (head dims 16, chunk 16, fp32)
+   serves through its own engine: the path of the simt kernels.
    (i) Then serves the other families at full width, each freed from the
    card before the next: mixtral-8x7b (8 of 32 layers, bf16 parameters;
    4 x 6144 prompt tokens, past its 4096-token window, 32 new),
@@ -106,11 +115,13 @@
    256 fake ranks and one rank's counts at phase (j)'s shape, in
    subprocesses, and MFU of phase (j)'s step, all labelled "(dry-run,
    H100 constants)".
-7. Times K2's two variants, SDPA and the plain version in turns at the
-   serving call (and the simt kernel, SDPA and the plain version in fp32,
-   the simt kernel's serving dtype) and at qwen3-8b's D=128 GQA shape,
-   and K3's two variants and its plain version in turns at its serving
-   call, with each one's distance to a float64 run of the plain version.
+7. Times K2's wgmma and simt kernels, SDPA and the plain version in
+   turns at the serving call (and in fp32 the wgmma_f32 instance, the
+   simt kernel, SDPA and the plain version) and at qwen3-8b's D=128 GQA
+   shape, and K3's instances, the simt kernel and the plain version in
+   turns at its serving call (bf16 B/C; f32 B/C for wgmma_split) and at
+   L = 12 and 64, with each one's distance to a float64 run of the plain
+   version.
 8. Prints one JSON line of kernel measurements, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -443,27 +454,35 @@ K2_BASE_CASES = [
     (8, 32, 32, 2048, 2048, 64, True, 0, BF16),
 ]
 #: every geometry above but the serving shape, in bf16 and f16 at head
-#: dims 64 and 128 (the wgmma variant), then qwen3-8b's GQA heads at the
-#: serving batch and prompt: 32 query heads over 8 KV heads of 128
+#: dims 64 and 128 (the wgmma variant) and in f32 there (wgmma_f32), then
+#: qwen3-8b's GQA heads at the serving batch and prompt: 32 query heads
+#: over 8 KV heads of 128; then phase (i)'s calls in bf16 and f32; then
+#: every geometry at head dims 16 and 32 in f32 and bf16 (simt)
 K2_GEOMETRIES = list(dict.fromkeys(
     (B, H, Hkv, Sq, Skv, causal, window)
     for B, H, Hkv, Sq, Skv, _, causal, window, _ in K2_BASE_CASES[:-1]))
-K2_CASES = K2_BASE_CASES + [
+#: phase (i)'s serving calls (B, H, Hkv, Sq, Skv, D, causal, window), at
+#: batch 1 where the plain version's [B, H, Sq, Skv] fp32 scores would
+#: not fit: mixtral (window 4096 past a 6144-token prompt), qwen2-vl,
+#: whisper's encoder, cross-attention (Sq != Skv, not causal) and decoder
+K2_FAMILY_CALLS = [
+    (1, 32, 8, 6144, 6144, 128, True, 4096),
+    (4, 28, 4, 2048, 2048, 128, True, 0),
+    (4, 20, 20, 1500, 1500, 64, False, 0),
+    (4, 20, 20, 64, 1500, 64, False, 0),
+    (4, 20, 20, 64, 64, 64, True, 0),
+]
+K2_CASES = list(dict.fromkeys(K2_BASE_CASES + [
     (B, H, Hkv, Sq, Skv, D, causal, window, dt)
     for B, H, Hkv, Sq, Skv, causal, window in K2_GEOMETRIES
-    for dt in (BF16, F16) for D in (64, 128)
-    if (B, H, Hkv, Sq, Skv, D, causal, window, dt) not in K2_BASE_CASES
+    for dt in (BF16, F16, F32) for D in (64, 128)
 ] + [(8, 32, 8, 2048, 2048, 128, True, 0, BF16)] + [
-    # phase (i)'s serving calls, at batch 1 where the plain version's
-    # [B, H, Sq, Skv] fp32 scores would not fit: mixtral (window 4096 past
-    # a 6144-token prompt), qwen2-vl, whisper's encoder, cross-attention
-    # (Sq != Skv, not causal) and decoder
-    (1, 32, 8, 6144, 6144, 128, True, 4096, BF16),
-    (4, 28, 4, 2048, 2048, 128, True, 0, BF16),
-    (4, 20, 20, 1500, 1500, 64, False, 0, BF16),
-    (4, 20, 20, 64, 1500, 64, False, 0, BF16),
-    (4, 20, 20, 64, 64, 64, True, 0, BF16),
-]
+    (*call, dt) for dt in (BF16, F32) for call in K2_FAMILY_CALLS
+] + [
+    (B, H, Hkv, Sq, Skv, D, causal, window, dt)
+    for B, H, Hkv, Sq, Skv, causal, window in K2_GEOMETRIES
+    for dt in (F32, BF16) for D in (16, 32)
+]))
 #: f32 at the reference tests' 2e-5, scaled by 5 for the card's exp and
 #: summation order; bf16 outputs at the reference's 2e-2, which also
 #: covers P rounded to bf16 (2^-9 relative) before the second product;
@@ -499,10 +518,12 @@ def k2_sweep(gen):
 
 #: (B, L, H, P, N, chunk, B/C dtype, decay low end): tests/test_kernels.py's
 #: SSD cases (incl. L=100 padding), chunk invariance, the long strong-decay
-#: case (x = 1, a = 0.5), all with f32 B/C (the simt variant); then bf16
-#: B/C at P = N = 64 and chunk 128 (the wgmma variant): one chunk, a
-#: ragged L = 300, the long-decay case, bf16 below chunk 128 (simt) and
-#: the serving shape
+#: case (x = 1, a = 0.5), with f32 B/C at the narrower dims (simt) and at
+#: P = N = 64 (wgmma_split); at P = N = 64 and a configured chunk of 64
+#: (simt); then each B/C dtype at P = N = 64 and chunk 128 (bf16: wgmma,
+#: f32/f16: wgmma_split): one chunk, a ragged L = 300, the long-decay case,
+#: sequences shorter than one chunk (L = 1, 12, 64, 100: one padded chunk)
+#: and the serving shape
 K3_CASES = [
     (1, 64, 1, 16, 16, 16, F32, 0.7),
     (2, 128, 2, 32, 16, 64, F32, 0.7),
@@ -511,11 +532,19 @@ K3_CASES = [
     (1, 128, 2, 16, 16, 16, F32, 0.8),
     (1, 128, 2, 16, 16, 128, F32, 0.8),
     (1, 256, 1, 16, 16, 64, F32, None),
-    (1, 128, 4, 64, 64, 128, BF16, 0.7),
-    (2, 300, 3, 64, 64, 128, BF16, 0.7),
-    (1, 512, 2, 64, 64, 128, BF16, None),
-    (2, 100, 3, 64, 64, 128, BF16, 0.7),
-    (8, 2048, 64, 64, 64, 128, BF16, 0.7),
+    (1, 256, 2, 64, 64, 64, F32, 0.7),
+    (1, 256, 2, 64, 64, 64, BF16, 0.7),
+] + [
+    case for dt in (BF16, F32, F16) for case in (
+        (1, 128, 4, 64, 64, 128, dt, 0.7),
+        (2, 300, 3, 64, 64, 128, dt, 0.7),
+        (1, 512, 2, 64, 64, 128, dt, None),
+        (2, 1, 3, 64, 64, 128, dt, 0.7),
+        (2, 12, 3, 64, 64, 128, dt, 0.7),
+        (2, 64, 3, 64, 64, 128, dt, 0.7),
+        (2, 100, 3, 64, 64, 128, dt, 0.7),
+        (8, 2048, 64, 64, 64, 128, dt, 0.7),
+    )
 ]
 K3_TOL = 1e-4          # the reference suite's; relative on the serving shape
 
@@ -539,7 +568,7 @@ def k3_sweep(gen):
     for B, L, H, P, N, chunk, bdt, lo in K3_CASES:
         x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, bdt, lo)
         where = (B, L, H, P, N, chunk, bdt, lo)
-        ran = K3.variant(bdt, P, N, min(chunk, L))
+        ran = K3.variant(bdt, P, N, chunk)
         before = K3.ssd_scan_cuda.by_variant[ran]
         y, s = K3.ssd_scan_cuda(x, a, Bm, Cm, chunk)
         check(K3.ssd_scan_cuda.by_variant[ran] == before + 1,
@@ -573,17 +602,22 @@ def k3_sweep(gen):
     return len(K3_CASES), worst
 
 
-#: K3 from a random initial state: f32 B/C (simt), bf16 B/C at P = N = 64
-#: and chunk 128 (both kernels: the wgmma one as serving picks it, the
-#: simt one called directly), incl. a ragged L and the serving shape
+#: K3 from a random initial state: f32 B/C at the narrower dims and at a
+#: chunk of 64 (simt); each B/C dtype at P = N = 64 and chunk 128 (both
+#: kernels: the wgmma instance as serving picks it, the simt kernel
+#: called directly), incl. a ragged L, L = 1, 12, 64, 100 (one padded
+#: chunk) and the serving shape
 K3_STATE_CASES = [
     (1, 64, 1, 16, 16, 16, F32),
     (1, 100, 2, 32, 32, 32, F32),
-    (1, 128, 4, 64, 64, 128, F32),
-    (1, 128, 4, 64, 64, 128, BF16),
-    (2, 300, 3, 64, 64, 128, BF16),
-    (8, 2048, 64, 64, 64, 128, BF16),
-]
+    (1, 256, 2, 64, 64, 64, F32),
+] + [
+    case for dt in (BF16, F32, F16) for case in (
+        (1, 128, 4, 64, 64, 128, dt),
+        (2, 300, 3, 64, 64, 128, dt),
+        (8, 2048, 64, 64, 64, 128, dt),
+    )
+] + [(2, L, 3, 64, 64, 128, BF16) for L in (1, 12, 64, 100)]
 
 
 def k3_state_sweep(gen):
@@ -594,12 +628,12 @@ def k3_state_sweep(gen):
     for B, L, H, P, N, chunk, bdt in K3_STATE_CASES:
         x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, bdt, 0.7)
         s0 = torch.randn(B, H, P, N, generator=gen, device=DEV)
-        Q = min(chunk, L)
-        yp, sp = ssd_chunked_ref(x, a, Bm, Cm, Q, s0)
+        yp, sp = ssd_chunked_ref(x, a, Bm, Cm, min(chunk, L), s0)
         scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
         runs = [("simt", K3.ssd_scan_simt)]
-        if K3.variant(bdt, P, N, Q) == "wgmma":
-            runs.append(("wgmma", K3.ssd_scan_wgmma))
+        ran = K3.variant(bdt, P, N, chunk)
+        if ran != "simt":
+            runs.append((ran, K3.ssd_scan_wgmma))
         for ran, fn in runs:
             y, s = fn(x, a, Bm, Cm, chunk, init_state=s0)
             torch.cuda.synchronize()
@@ -618,7 +652,7 @@ def continuity_check(gen):
     heads of P 64, N 64, chunk 128), random weights: ``ssm_full`` over the
     serving prompt (8 x 2048 tokens) against 1024 tokens and then 1024 from
     the returned conv and SSM state, with bf16 activations (the wgmma
-    kernel, as serving runs it) and fp32 (the simt kernel).  The scan
+    kernel, as serving runs it) and fp32 (its split instance).  The scan
     calls are captured: the chained scans (the second from the first's
     state) must equal one scan over the same 2048 steps within the K3
     check's 1e-4 x max(1, max|y|, max|S|); their inputs and the conv state
@@ -647,7 +681,7 @@ def continuity_check(gen):
             _, end = ssm_mod.ssm_full(cfg, p, x[:, h:], mid)
         finally:
             ssm_mod.ssd_scan = inner
-        ran = "wgmma" if dt == BF16 else "simt"
+        ran = "wgmma" if dt == BF16 else "wgmma_split"
         check(K3.ssd_scan_cuda.by_variant[ran] == before[ran] + 3,
               f"continuity ({dt}): the three scans did not all take {ran}")
         (in_w, y_w, s_w), (in_1, y_1, _), (in_2, y_2, s_2) = calls
@@ -1467,6 +1501,9 @@ def measure_block(table, shapes):
 
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 2048, 64
 SERVE_HEADS, SERVE_SSM_HEADS = 32, 64       # zamba2-1.2b's attention, SSM
+#: the serving launcher's default prompt (launch/serve.py), shorter than
+#: one SSD chunk; the reduced config's prompt (4 of its 16-step chunks)
+SHORT_PROMPT, REDUCED_PROMPT, REDUCED_NEW = 12, 64, 8
 #: Kernel run against plain-kernel run.  With random weights the model in
 #: bf16 drifts far from its own fp32 computation (about 30% relative in the
 #: last hidden state, measured on the card), and any two bf16 runs whose
@@ -1479,6 +1516,12 @@ SERVE_HEADS, SERVE_SSM_HEADS = 32, 64       # zamba2-1.2b's attention, SSM
 F32_LOGIT_TOL = 2e-2
 F32_GREEDY_MIN = 0.98
 BF16_MEAN_RATIO, BF16_MAX_RATIO = 1.10, 1.25
+
+
+def only(kernel, **n):
+    """``by_variant`` of K2 or K3 (``kernel``) after a run that launched
+    just ``n`` of its variants."""
+    return dict(dict.fromkeys(kernel.VARIANTS, 0), **n)
 
 
 def plain_ssd(x, a, Bm, Cm, chunk, init_state=None):
@@ -1549,10 +1592,14 @@ def breakdown(wall, prof):
         name = evt.name.lower()
         if "flash_wgmma_kernel" in name:
             cat = "K2"
+        elif "flash_wgmma_split_kernel" in name:
+            cat = "K2 f32"
         elif "flash_fwd_kernel" in name:
             cat = "K2 simt"
         elif "ssd_wgmma_kernel" in name:
             cat = "K3"
+        elif "split_bc_kernel" in name:
+            cat = "K3 pre-pass"
         elif "ssd_scan_kernel" in name:
             cat = "K3 simt"
         elif "memcpy" in name or "memset" in name:
@@ -1606,9 +1653,9 @@ def serve_path():
             "K3": kinds.count("ssm")}          # 6 and 32 for zamba2-1.2b
     check(out["launches"] == want,
           f"launches per prefill {out['launches']} != {want}")
-    check(out["k2_variants"] == {"wgmma": want["K2"], "simt": 0},
+    check(out["k2_variants"] == only(K2, wgmma=want["K2"]),
           f"bf16 prefill K2 variants {out['k2_variants']}")
-    check(out["k3_variants"] == {"wgmma": want["K3"], "simt": 0},
+    check(out["k3_variants"] == only(K3, wgmma=want["K3"]),
           f"bf16 prefill K3 variants {out['k3_variants']}")
     check(res.tokens.shape == (SERVE_B, SERVE_NEW)
           and 0 <= res.tokens.min() and res.tokens.max() < cfg.vocab,
@@ -1648,22 +1695,25 @@ def serve_path():
     kern32 = teacher_forced(*run32)
     out["f32_k2_variants"] = dict(K2.flash_attention_cuda.by_variant)
     out["f32_k3_variants"] = dict(K3.ssd_scan_cuda.by_variant)
-    check(bf16_variants[0] == {"wgmma": want["K2"], "simt": 0}
-          and out["f32_k2_variants"] == {"wgmma": 0, "simt": want["K2"]},
+    check(bf16_variants[0] == only(K2, wgmma=want["K2"])
+          and out["f32_k2_variants"] == only(K2, wgmma_f32=want["K2"]),
           f"teacher-forced K2 variants: bf16 {bf16_variants[0]}, fp32 "
           f"{out['f32_k2_variants']}")
-    check(bf16_variants[1] == {"wgmma": want["K3"], "simt": 0}
-          and out["f32_k3_variants"] == {"wgmma": 0, "simt": want["K3"]},
+    check(bf16_variants[1] == only(K3, wgmma=want["K3"])
+          and out["f32_k3_variants"] == only(K3, wgmma_split=want["K3"]),
           f"teacher-forced K3 variants: bf16 {bf16_variants[1]}, fp32 "
           f"{out['f32_k3_variants']}")
     K2.reset_counts()
     k3_before = K3.ssd_scan_cuda.launches
     with plain_kernels():
         plain, plain32 = teacher_forced(*run), teacher_forced(*run32)
-    del params32
     check(K2.flash_attention_cuda.launches == 0
           and K3.ssd_scan_cuda.launches == k3_before,
           "plain-kernel runs launched a kernel")
+    out["prefill32_s"] = kernel_vs_plain_s(
+        lambda: run32[0].prefill(params32, pr))
+    out["short"] = short_prefill(engine, run32[0], params32, prompts, want)
+    del params32
     check(all(bool(torch.isfinite(t).all())
               for t in (kern, plain, kern32, plain32)), "non-finite logits")
     out["logit_max_err"], out["logit_mean_err"] = gaps(kern, plain)
@@ -1691,6 +1741,107 @@ def serve_path():
     del engine, kern, plain, kern32, plain32
     gc.collect()
     torch.cuda.empty_cache()
+    out["reduced"] = reduced_serve()
+    return out
+
+
+def kernel_vs_plain_s(fn):
+    """Seconds of ``fn()`` on the kernels and under ``plain_kernels()``,
+    each the mean of two timed runs in turns (kernels, plain, plain,
+    kernels) after one untimed run of each: a shape's first run pays
+    allocations and library set-up, whichever side it falls on."""
+    def plain():
+        with plain_kernels():
+            return fn()
+
+    fn()
+    plain()
+    secs = {"kernels": [], "plain": []}
+    for name, f in (("kernels", fn), ("plain", plain), ("plain", plain),
+                    ("kernels", fn)):
+        secs[name].append(timed(f)[1])
+    return {name: sum(t) / len(t) for name, t in secs.items()}
+
+
+def short_prefill(engine, model32, params32, prompts, want):
+    """The serving launcher's default prompt of SHORT_PROMPT tokens,
+    shorter than one SSD chunk: generated through the engine in bf16 (K3
+    must run its wgmma variant once a layer, as one padded chunk, and no
+    simt launch), then its prefill logits on the kernels in bf16 and fp32
+    (wgmma_split) against ``plain_kernels()``, with the full prompt's
+    tolerances."""
+    p = prompts[:, :SHORT_PROMPT]
+    reset_kernel_counts()
+    res = engine.generate(p, 4)
+    out = {"k2": dict(K2.flash_attention_cuda.by_variant),
+           "k3": dict(K3.ssd_scan_cuda.by_variant),
+           "prefill_s": res.prefill_s}
+    check(out["k2"] == only(K2, wgmma=want["K2"])
+          and out["k3"] == only(K3, wgmma=want["K3"]),
+          f"{SHORT_PROMPT}-token bf16 prefill: K2 {out['k2']}, K3 "
+          f"{out['k3']}")
+    pr = torch.as_tensor(p, dtype=torch.int64, device=DEV)
+    reset_kernel_counts()
+    kern32 = model32.prefill(params32, pr)[0].float()
+    out["k3_f32"] = dict(K3.ssd_scan_cuda.by_variant)
+    check(out["k3_f32"] == only(K3, wgmma_split=want["K3"]),
+          f"{SHORT_PROMPT}-token fp32 prefill: K3 {out['k3_f32']}")
+    kern = engine.model.prefill(engine.params, pr)[0].float()
+    with plain_kernels():
+        plain = engine.model.prefill(engine.params, pr)[0].float()
+        plain32 = model32.prefill(params32, pr)[0].float()
+    check(all(bool(torch.isfinite(t).all())
+              for t in (kern, plain, kern32, plain32)),
+          f"{SHORT_PROMPT}-token prefill: non-finite logits")
+    out["f32_max_err"], _ = gaps(kern32, plain32)
+    out["greedy_f32"] = float(
+        (kern32.argmax(-1) == plain32.argmax(-1)).float().mean())
+    check(out["f32_max_err"] <= F32_LOGIT_TOL
+          and out["greedy_f32"] >= F32_GREEDY_MIN,
+          f"{SHORT_PROMPT}-token fp32 prefill vs plain: max "
+          f"{out['f32_max_err']:.3g}, greedy {out['greedy_f32']:.3f}")
+    (km, kmean), (pm, pmean) = gaps(kern, plain32), gaps(plain, plain32)
+    out["kern_to_f32"], out["plain_to_f32"] = (km, kmean), (pm, pmean)
+    check(kmean <= BF16_MEAN_RATIO * pmean and km <= BF16_MAX_RATIO * pm,
+          f"{SHORT_PROMPT}-token bf16 prefill further from fp32 than the "
+          f"plain run: mean {kmean:.3g} vs {pmean:.3g}, max {km:.3g} vs "
+          f"{pm:.3g}")
+    return out
+
+
+def reduced_serve():
+    """zamba2-1.2b's reduced config (head dims 16, SSM P = N = 16, chunk
+    16, fp32) through its own ``ServeEngine``: the configs that still run
+    the simt kernels.  Its prefill must take K2's and K3's simt kernels
+    once a layer and nothing else; the prefill logits on the kernels
+    against ``plain_kernels()`` at the fp32 tolerance."""
+    cfg = get_config("zamba2_1p2b", reduced=True)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    params = build_model(cfg).init(gen, DEV)
+    engine = ServeEngine(cfg, params, REDUCED_PROMPT + REDUCED_NEW + 1,
+                         SERVE_B, device=DEV)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, REDUCED_PROMPT),
+                            generator=gen, device=DEV,
+                            dtype=torch.int32).cpu().numpy()
+    kinds = cfg.layer_kinds()
+    want = (only(K2, simt=kinds.count("attn_shared") + kinds.count("attn")),
+            only(K3, simt=kinds.count("ssm")))
+    reset_kernel_counts()
+    res = engine.generate(prompts, REDUCED_NEW)
+    out = {"counts": kernel_counts(), "want": want,
+           "prefill_s": res.prefill_s}
+    check(out["counts"] == want,
+          f"reduced config launches {out['counts']}, want {want}")
+    pr = torch.as_tensor(prompts, dtype=torch.int64, device=DEV)
+    kern = engine.model.prefill(engine.params, pr)[0].float()
+    with plain_kernels():
+        plain = engine.model.prefill(engine.params, pr)[0].float()
+    out["max_err"], _ = gaps(kern, plain)
+    check(bool(torch.isfinite(kern).all())
+          and out["max_err"] <= F32_LOGIT_TOL,
+          f"reduced config kernel vs plain logits: max {out['max_err']:.3g}")
+    del engine, params
+    free_card()
     return out
 
 
@@ -1777,8 +1928,8 @@ def family_inputs(cfg, fam, gen, batch=None):
 def f32_check(fam):
     """The family's full width at 2 layers in fp32, one request, its
     logits at every prompt position on the kernels and under
-    ``plain_kernels()``; K2 must run its simt variant twice a layer stack
-    (six times for whisper)."""
+    ``plain_kernels()``; K2 must run its wgmma_f32 variant twice a layer
+    stack (six times for whisper), and never its simt kernel."""
     cut = dict(fam.cut, n_layers=2, dtype=F32, param_dtype=F32)
     cfg = get_config(fam.arch)
     if cfg.is_encdec:
@@ -1793,7 +1944,7 @@ def f32_check(fam):
     kern, _ = model.forward(params, *args)
     variants = k2_counts()
     want = 3 * cfg.n_layers if cfg.is_encdec else cfg.n_layers
-    check(variants == {"wgmma": 0, "simt": want},
+    check(variants == only(K2, wgmma_f32=want),
           f"{fam.arch} fp32 K2 variants {variants}")
     with plain_kernels():
         plain, _ = model.forward(params, *args)
@@ -1809,7 +1960,9 @@ def f32_check(fam):
     out = {"max_err": err, "mean_err": mean, "greedy": agree,
            "positions": int(kern.shape[1]), "variants": variants,
            "absmax": float(plain.abs().max())}
-    del params, kern, plain
+    del kern, plain
+    out["secs"] = kernel_vs_plain_s(lambda: model.forward(params, *args))
+    del params
     free_card()
     return out
 
@@ -1863,7 +2016,7 @@ def family_phase(fam):
     out["k2"] = k2_counts()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["decode_tok_s"] = fam.batch * (fam.new - 1) / out["decode_s"]
-    check(out["k2"] == {"wgmma": fam.k2, "simt": 0},
+    check(out["k2"] == only(K2, wgmma=fam.k2),
           f"{fam.arch}: K2 by variant per prefill {out['k2']}, want "
           f"{fam.k2} wgmma")
     check(tokens.shape == (fam.batch, fam.new) and tokens.min() >= 0
@@ -1929,7 +2082,9 @@ def report_families(fm, card):
                 f"{c['mean_err']:.3g} (tolerance {F32_LOGIT_TOL}; max |logit|"
                 f" {c['absmax']:.3g}), greedy agreement "
                 f"{c['greedy'] * 100:.2f}% (min {F32_GREEDY_MIN * 100:.0f}%);"
-                f" K2 {c['variants']}")
+                f" K2 {c['variants']}; forward {c['secs']['kernels']:.4f} s "
+                f"on the kernels, {c['secs']['plain']:.4f} s on the plain "
+                f"versions (means of two turns each)")
 
 
 # ----------------------------------------------------------------------
@@ -2010,8 +2165,8 @@ def grad_check():
     """(j1): zamba2-1.2b at full width and 6 layers (five Mamba2 layers
     and one shared attention block), fp32 params, one sequence of
     TRAIN_SEQ tokens: ``lm_loss`` and every gradient on the kernels and
-    under ``plain_kernels()``, in fp32 (simt variants) and bf16 compute
-    (wgmma variants)."""
+    under ``plain_kernels()``, in fp32 (K2's wgmma_f32 and K3's
+    wgmma_split) and bf16 compute (the wgmma variants)."""
     cfg32 = dataclasses.replace(zamba2_1p2b.full(), n_layers=6, dtype=F32)
     gen = torch.Generator(device=DEV).manual_seed(3)
     params = build_model(cfg32).init(gen, DEV)
@@ -2020,18 +2175,19 @@ def grad_check():
     k2, k3 = launches_per_microbatch(cfg32)
     out = {"params": sum(p.numel() for p in leaf_paths(params).values()),
            "k2": k2, "k3": k3}
-    for tag, dt, var in (("f32", F32, "simt"), ("bf16", BF16, "wgmma")):
+    for tag, dt, var2, var3 in (("f32", F32, "wgmma_f32", "wgmma_split"),
+                                ("bf16", BF16, "wgmma", "wgmma")):
         cfg = dataclasses.replace(cfg32, dtype=dt)
         reset_kernel_counts()
         loss_k, g_k = loss_and_grads(cfg, params, tokens)
         counts = kernel_counts()
-        other = {"simt": "wgmma", "wgmma": "simt"}[var]
-        check(counts == ({var: k2, other: 0}, {var: k3, other: 0}),
-              f"(j1) {tag} launches {counts}, want K2 {k2} and K3 {k3} "
-              f"{var}")
+        check(counts == (only(K2, **{var2: k2}), only(K3, **{var3: k3})),
+              f"(j1) {tag} launches {counts}, want K2 {k2} {var2} and K3 "
+              f"{k3} {var3}")
         with plain_kernels():
             loss_p, g_p = loss_and_grads(cfg, params, tokens)
         check(kernel_counts() == counts, "(j1) plain run launched a kernel")
+        secs = kernel_vs_plain_s(lambda: loss_and_grads(cfg, params, tokens))
         zero = [k for k, g in g_k.items() if not bool(g.abs().max() > 0)]
         check(not zero, f"(j1) {tag}: zero gradient for {zero}")
         in_proj = [k for k in g_k if k.endswith("/ssm/in_proj")]
@@ -2043,6 +2199,7 @@ def grad_check():
         check(all(bool(torch.isfinite(g).all()) for g in g_k.values()),
               f"(j1) {tag}: non-finite gradients")
         out[tag] = {"loss_kernel": loss_k, "loss_plain": loss_p,
+                    "secs": secs,
                     "counts": counts, "leaves": len(g_k),
                     "kern_vs_plain": leaf_gaps(g_k, g_p)}
         if tag == "f32":
@@ -2108,8 +2265,8 @@ def train_path():
         out["loss0_before"] = float(lm_loss(cfg, model, params, batch0)[0])
     snap = [p.flatten()[:4096].clone() for p in tree_leaves(params)]
     k2, k3 = launches_per_microbatch(cfg)
-    out["want"] = ({"wgmma": k2 * TRAIN_MICRO, "simt": 0},
-                   {"wgmma": k3 * TRAIN_MICRO, "simt": 0})
+    out["want"] = (only(K2, wgmma=k2 * TRAIN_MICRO),
+                   only(K3, wgmma=k3 * TRAIN_MICRO))
 
     def counted(p, o, batch, i):
         reset_kernel_counts()
@@ -2200,7 +2357,10 @@ def report_training(gc_out, tr, rs, card, secs):
             f"{r['kern_vs_plain'][0]:.3g}, worst "
             f"{r['kern_vs_plain'][1]:.3g} ({r['kern_vs_plain'][2]}) over "
             f"{r['leaves']} leaves, launches K2 {r['counts'][0]} K3 "
-            f"{r['counts'][1]}"
+            f"{r['counts'][1]}, loss and gradients "
+            f"{r['secs']['kernels']:.3f} s on the kernels, "
+            f"{r['secs']['plain']:.3f} s on the plain versions (means of two "
+            f"turns each)"
             for tag, r in ((t, gc_out[t]) for t in ("f32", "bf16")))
         + "; bf16 distance to the fp32 plain gradients, mean over leaves / "
         "worst: kernels {:.3g} / {:.3g} ({}), plain {:.3g} / {:.3g} ({}) "
@@ -2333,8 +2493,7 @@ def sharded_train(mesh):
           f"(k1) mesh batch {type(batches[0]).__name__} "
           f"{tuple(batches[0].shape)}")
     k2, k3 = launches_per_microbatch(cfg)
-    want = ({"wgmma": k2 * TRAIN_MICRO, "simt": 0},
-            {"wgmma": k3 * TRAIN_MICRO, "simt": 0})
+    want = (only(K2, wgmma=k2 * TRAIN_MICRO), only(K3, wgmma=k3 * TRAIN_MICRO))
     out = {"want": want, "steps": []}
 
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -2393,7 +2552,7 @@ def gradient_checks(mesh):
     tokens = torch.randint(0, cfg.vocab, (GRAD_B, TRAIN_SEQ + 1),
                            generator=gen, device=DEV, dtype=torch.int32)
     k2, k3 = launches_per_microbatch(cfg)
-    want = ({"wgmma": 0, "simt": k2}, {"wgmma": 0, "simt": k3})
+    want = (only(K2, wgmma_f32=k2), only(K3, wgmma_split=k3))
     opt_cfg = AdamWConfig(lr=K2_LR)
     out = {"want": want}
 
@@ -2478,8 +2637,8 @@ def sharded_serve(mesh):
     out = {"prefill_s": secs, "counts": kernel_counts()}
     logits_c = logits_c.full_tensor().float()
     kinds = cfg.layer_kinds()
-    want = ({"wgmma": kinds.count("attn_shared"), "simt": 0},
-            {"wgmma": kinds.count("ssm"), "simt": 0})
+    want = (only(K2, wgmma=kinds.count("attn_shared")),
+            only(K3, wgmma=kinds.count("ssm")))
     check(out["counts"] == want,
           f"(k3) prefill launches {out['counts']}, want {want}")
     out["mesh_to_f32"] = gaps(logits_c, logits32.float())
@@ -2662,11 +2821,13 @@ K2_TIMED = {"zamba2": (SERVE_B, SERVE_HEADS, SERVE_HEADS, SERVE_PROMPT, 64),
 
 
 def measure_k2(gen, B, H, Hkv, S, D, f32=False):
-    """K2's two variants, SDPA and the plain version on one bf16 causal
-    call, timed in turns (wgmma, simt, SDPA, plain, then backwards); each
-    time is the mean of its two turns.  With ``f32``, also the simt
-    kernel, SDPA and the plain version on the same call in fp32, the
-    simt kernel's dtype on the serving path (``"simt_f32"``)."""
+    """K2's wgmma and simt kernels, SDPA and the plain version on one
+    bf16 causal call, timed in turns (wgmma, simt, SDPA, plain, then
+    backwards); each time is the mean of its two turns.  With ``f32``,
+    also the wgmma_f32 instance, the simt kernel, SDPA and the plain
+    version on the same call in fp32, the dtype of the fp32 checks
+    (``"wgmma_f32"``, ``"simt_f32"``, ...); wgmma_f32's bound is the
+    split contract's: three bf16 products for each."""
     q = torch.randn(B, S, H, D, generator=gen, device=DEV).to(BF16)
     k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=DEV).to(BF16)
             for _ in range(2))
@@ -2696,15 +2857,23 @@ def measure_k2(gen, B, H, Hkv, S, D, f32=False):
     if f32:
         q32, k32, v32 = (t.float() for t in (q, k, v))
         want32 = attention_ref(q32, k32, v32, scale)
-        got32 = K2.flash_attention_simt(q32, k32, v32, scale)
-        torch.cuda.synchronize()
-        errs["simt_f32"] = float((got32 - want32).abs().max())
-        check(torch.allclose(got32, want32, rtol=K2_TOL[F32],
-                             atol=K2_TOL[F32]),
-              f"K2 simt f32 at {(B, H, Hkv, S, D)}: max err "
-              f"{errs['simt_f32']:.3g}")
-        del got32, want32
+        want64 = attention_ref(q32.double(), k32.double(), v32.double(),
+                               scale)
+        f64 = {"plain": float((want32.double() - want64).abs().max())}
+        for name, fn in (("wgmma_f32", K2.flash_attention_wgmma),
+                         ("simt_f32", K2.flash_attention_simt)):
+            got32 = fn(q32, k32, v32, scale)
+            torch.cuda.synchronize()
+            errs[name] = float((got32 - want32).abs().max())
+            f64[name] = float((got32.double() - want64).abs().max())
+            check(torch.allclose(got32, want32, rtol=K2_TOL[F32],
+                                 atol=K2_TOL[F32]),
+                  f"K2 {name} at {(B, H, Hkv, S, D)}: max err "
+                  f"{errs[name]:.3g}")
+        del got32, want32, want64
         runs.update({
+            "wgmma_f32": (lambda: K2.flash_attention_wgmma(q32, k32, v32,
+                                                           scale), 10),
             "simt_f32": (lambda: K2.flash_attention_simt(q32, k32, v32,
                                                          scale), 5),
             "sdpa_f32": (lambda: sdpa(q32, k32, v32, is_causal=True,
@@ -2726,66 +2895,101 @@ def measure_k2(gen, B, H, Hkv, S, D, f32=False):
                                ms["sdpa"], flops, nbytes)
              for name in ("wgmma", "simt")}
     if f32:
+        entry["wgmma_f32"] = bound_entry(errs["wgmma_f32"], ms["wgmma_f32"],
+                                         ms["plain_f32"], ms["sdpa_f32"],
+                                         3 * flops, 2 * nbytes)
         entry["simt_f32"] = bound_entry(errs["simt_f32"], ms["simt_f32"],
                                         ms["plain_f32"], ms["sdpa_f32"],
                                         flops, 2 * nbytes, FP32_FLOPS)
+        entry["f64_err"] = f64
     entry["turns"] = turns
     return entry
+
+
+def k3_work(B, L, H, P, N, Q, bc_bytes):
+    """(operations, bytes) of one chunked scan from zero: the lower
+    triangles of C.B^T and of M.x, the carried state's term and the state
+    update per chunk of Q; x and y f32, a, B and C read once, the final
+    state written."""
+    per_chunk = Q * (Q + 1) * (N + P) + 4 * Q * P * N + 2 * P * N
+    flops = B * H * -(-L // Q) * per_chunk
+    nbytes = (2 * B * L * H * P * 4 + B * L * H * 4 + 2 * B * L * N * bc_bytes
+              + B * H * P * N * 4)
+    return flops, nbytes
+
+
+#: K3's timed calls: (tag, L, B/C dtype, the kernels timed beside the
+#: plain version); all at B 8, H 64, P = N = 64, chunk 128
+K3_TIMED = (("serve", SERVE_PROMPT, BF16, ("wgmma", "simt")),
+            ("serve_f32bc", SERVE_PROMPT, F32, ("wgmma_split",)),
+            ("L12", SHORT_PROMPT, BF16, ("wgmma", "simt")),
+            ("L64", 64, BF16, ("wgmma", "simt")))
 
 
 def measure_k3(gen):
-    """K3 at the serving call: x [8, 2048, 64, 64] f32, a [8, 2048, 64],
-    B/C [8, 2048, 64] bf16 column slices, chunk 128.  Its two variants and
-    the plain version are timed in turns (wgmma, simt, plain, then
-    backwards); each time is the mean of its two turns.  Errors: each
-    kernel against the plain version, and each kernel and the fp32 plain
-    version against the plain version run in float64 on the card."""
-    B, L, H, P, N, Q = SERVE_B, SERVE_PROMPT, SERVE_SSM_HEADS, 64, 64, 128
-    x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, BF16, 0.7)
-    check(K3.variant(Bm.dtype, P, N, Q) == "wgmma", "K3 serving variant")
+    """K3 at the serving call (x [8, 2048, 64, 64] f32, a [8, 2048, 64],
+    chunk 128, B/C [8, 2048, 64] column slices) with bf16 B/C (the wgmma
+    instance and the simt kernel) and with f32 B/C (the split instance),
+    and at L = 12 and 64 with bf16 B/C (one padded chunk a stream).  Each
+    call's kernels and its plain version are timed in turns (forwards,
+    then backwards); each time is the mean of its two turns.  Errors:
+    each kernel against the plain version, and each kernel and the fp32
+    plain version against the plain version run in float64 on the card.
+    -> {tag: {kernel: measurements, "plain_f64_err": ...}}; the split
+    instance's bound is the contract's (three bf16 products for each)."""
+    B, H, P, N, Q = SERVE_B, SERVE_SSM_HEADS, 64, 64, 128
     counts = (K3.ssd_scan_cuda.launches, dict(K3.ssd_scan_cuda.by_variant))
-    yp, sp = ssd_chunked_ref(x, a, Bm, Cm, Q)
-    y64, s64 = ssd_chunked_ref(x.double(), a.double(), Bm.double(),
-                               Cm.double(), Q)
+
     def dist(y, s, yw, sw):
         return max(float((y.double() - yw.double()).abs().max()),
                    float((s.double() - sw.double()).abs().max()))
-    errs, f64 = {}, {"plain": dist(yp, sp, y64, s64)}
-    for name, fn in (("wgmma", K3.ssd_scan_wgmma),
-                     ("simt", K3.ssd_scan_simt)):
-        y, s = fn(x, a, Bm, Cm, Q)
-        torch.cuda.synchronize()
-        errs[name] = dist(y, s, yp, sp)
-        f64[name] = dist(y, s, y64, s64)
+
+    out = {}
+    for tag, L, bdt, names in K3_TIMED:
+        x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, bdt, 0.7)
+        want = "wgmma" if bdt == BF16 else "wgmma_split"
+        check(K3.variant(Bm.dtype, P, N, Q) == want, f"K3 {tag} variant")
+        yp, sp = ssd_chunked_ref(x, a, Bm, Cm, min(Q, L))
+        y64, s64 = ssd_chunked_ref(x.double(), a.double(), Bm.double(),
+                                   Cm.double(), min(Q, L))
         scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
-        check(errs[name] <= K3_TOL * scale,
-              f"K3 {name} at the serving call: max err {errs[name]:.3g}")
-    del y, s, yp, sp, y64, s64
-    runs = {
-        "wgmma": (lambda: K3.ssd_scan_wgmma(x, a, Bm, Cm, Q), 20),
-        "simt": (lambda: K3.ssd_scan_simt(x, a, Bm, Cm, Q), 10),
-        "plain": (lambda: ssd_chunked_ref(x, a, Bm, Cm, Q), 3),
-    }
-    turns = {name: [] for name in runs}
-    for order in (list(runs), list(runs)[::-1]):
-        for name in order:
-            fn, reps = runs[name]
-            turns[name].append(event_ms(fn, reps))
+        fns = {"wgmma": K3.ssd_scan_wgmma, "wgmma_split": K3.ssd_scan_wgmma,
+               "simt": K3.ssd_scan_simt}
+        errs, f64 = {}, {"plain": dist(yp, sp, y64, s64)}
+        for name in names:
+            y, s = fns[name](x, a, Bm, Cm, Q)
+            torch.cuda.synchronize()
+            errs[name] = dist(y, s, yp, sp)
+            f64[name] = dist(y, s, y64, s64)
+            check(errs[name] <= K3_TOL * scale,
+                  f"K3 {name} at {tag}: max err {errs[name]:.3g} (scale "
+                  f"{scale:.3g})")
+        del y, s, yp, sp, y64, s64
+        reps = 20 if L > Q else 50
+        runs = {name: (lambda fn=fns[name]: fn(x, a, Bm, Cm, Q),
+                       10 if name == "simt" else reps) for name in names}
+        runs["plain"] = (lambda: ssd_chunked_ref(x, a, Bm, Cm, min(Q, L)),
+                         3 if L > Q else 10)
+        turns = {name: [] for name in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for name in order:
+                fn, n = runs[name]
+                turns[name].append(event_ms(fn, n))
+        ms = {name: sum(t) / len(t) for name, t in turns.items()}
+        flops, nbytes = k3_work(B, L, H, P, N, min(Q, L), Bm.element_size())
+        entry = {name: dict(bound_entry(
+            errs[name], ms[name], ms["plain"], None,
+            3 * flops if name == "wgmma_split" else flops, nbytes),
+            f64_err=f64[name]) for name in names}
+        entry["plain_f64_err"] = f64["plain"]
+        entry["turns"] = turns
+        if "wgmma_split" in names:     # its pre-pass alone, in a loop
+            entry["prepass_ms"] = event_ms(lambda: K3.split_bc(Bm, Cm), 50)
+        out[tag] = entry
+        del x, a, Bm, Cm
     # comparison launches
     K3.ssd_scan_cuda.launches, K3.ssd_scan_cuda.by_variant = counts
-    ms = {name: sum(t) / len(t) for name, t in turns.items()}
-    # operations the chunked scan needs: the lower triangles of C.B^T and
-    # of M.x, the carried state's term, the state update
-    per_chunk = Q * (Q + 1) * (N + P) + 4 * Q * P * N + 2 * P * N
-    flops = B * H * -(-L // Q) * per_chunk
-    nbytes = (2 * B * L * H * P * 4 + B * L * H * 4 + 2 * B * L * N * 2
-              + B * H * P * N * 4)      # x, y; a; B, C once; final state
-    entry = {name: dict(bound_entry(errs[name], ms[name], ms["plain"], None,
-                                    flops, nbytes), f64_err=f64[name])
-             for name in ("wgmma", "simt")}
-    entry["plain_f64_err"] = f64["plain"]
-    entry["turns"] = turns
-    return entry
+    return out
 
 
 def bound_entry(err, ms, plain_ms, library_ms, flops, nbytes,
@@ -2815,7 +3019,10 @@ def report_serve(sv, card):
         f"device memory {sv['peak_gb']:.1f} GB; launches per prefill "
         f"{sv['launches']}, K2 by variant {sv['k2_variants']}, K3 by variant "
         f"{sv['k3_variants']} (fp32 activations: K2 "
-        f"{sv['f32_k2_variants']}, K3 {sv['f32_k3_variants']})")
+        f"{sv['f32_k2_variants']}, K3 {sv['f32_k3_variants']}; an fp32 "
+        f"prefill {sv['prefill32_s']['kernels']:.4f} s on the kernels, "
+        f"{sv['prefill32_s']['plain']:.4f} s on the plain versions, means "
+        f"of two turns each)")
     for what in ("prefill", "decode"):
         w, secs, calls, top = sv[f"{what}_trace"]
         busy = sum(secs.values())
@@ -2836,6 +3043,20 @@ def report_serve(sv, card):
         f"run's argmax {sv['greedy_plain'] * 100:.1f}%; distance to the fp32"
         f" run: kernel bf16 max {km:.4g} mean {kmean:.3g}, plain bf16 max "
         f"{pm:.4g} mean {pmean:.3g} (max |logit| {sv['logit_absmax']:.3g})")
+    sh, red = sv["short"], sv["reduced"]
+    (km, kmean), (pm, pmean) = sh["kern_to_f32"], sh["plain_to_f32"]
+    log(f"{SHORT_PROMPT}-token prefill (the serving launcher's default "
+        f"prompt) through the engine on {card}: bf16 {sh['prefill_s']:.4f}"
+        f" s, K2 {sh['k2']}, K3 {sh['k3']}; fp32 K3 {sh['k3_f32']}; fp32 "
+        f"kernel vs plain max |logit diff| {sh['f32_max_err']:.4g}, greedy "
+        f"agreement {sh['greedy_f32'] * 100:.1f}%; distance to the fp32 "
+        f"plain run: kernel bf16 max {km:.4g} mean {kmean:.3g}, plain bf16 "
+        f"max {pm:.4g} mean {pmean:.3g}")
+    log(f"zamba2-1.2b reduced config ({REDUCED_PROMPT}-token prompts, "
+        f"batch {SERVE_B}, fp32) through its engine on {card}: prefill "
+        f"{red['prefill_s']:.4f} s, K2 {red['counts'][0]}, K3 "
+        f"{red['counts'][1]}; kernel vs plain max |logit diff| "
+        f"{red['max_err']:.3g}")
 
 
 def ptxas_entries(text):
@@ -2899,6 +3120,9 @@ def build_kernels():
         if not lib.build_log:
             log(f"  {lib.source.name}: reused build, no ptxas report")
             continue
+        entries = ptxas_entries(lib.build_log)
+        log(f"  {lib.source.name} kernels (registers, spill bytes): "
+            + "; ".join(f"{n} {r} {st}/{ld}" for n, r, st, ld in entries))
         spills = re.findall(r"(\d+) bytes spill (?:stores|loads)",
                             lib.build_log)
         check(spills and not any(int(n) for n in spills),
@@ -3061,31 +3285,44 @@ def main() -> int:
                 f"MB), SDPA {km['library_ms']:.4f} ms (turns {sdpa_turns}),"
                 f" plain {km['plain_ms']:.3f} ms, max |kernel-plain| "
                 f"{km['max_abs_err']:.3g}")
-    km, turns = k2m["zamba2"]["simt_f32"], k2m["zamba2"]["turns"]
     B, H, Hkv, S, D = K2_TIMED["zamba2"]
-    log(f"K2 simt at zamba2 q [{B},{H},{S},{D}], k/v [{B},{Hkv},{S},{D}] "
-        f"fp32 causal (the fp32 serving run's dtype) on {card}: "
-        f"{km['ms']:.4f} ms (turns "
-        f"{', '.join(f'{t:.4f}' for t in turns['simt_f32'])}), bound "
-        f"{km['bound_ms']:.4f} ms ({km['bound_by']}, fp32 rate; "
-        f"{km['bytes'] / 1e6:.1f} MB), SDPA fp32 {km['library_ms']:.4f} ms "
-        f"(turns {', '.join(f'{t:.4f}' for t in turns['sdpa_f32'])}), "
-        f"plain fp32 {km['plain_ms']:.3f} ms, max |kernel-plain| "
-        f"{km['max_abs_err']:.3g}")
-    for var in ("wgmma", "simt"):
-        km = k3m[var]
-        turns = ", ".join(f"{t:.4f}" for t in k3m["turns"][var])
-        plain_turns = ", ".join(f"{t:.3f}" for t in k3m["turns"]["plain"])
-        log(f"K3 {var} at x [8,2048,64,64] f32, B/C bf16, chunk 128 on "
-            f"{card}: {km['ms']:.4f} ms (turns {turns}), bound "
-            f"{km['bound_ms']:.4f} ms ({km['bound_by']}; "
-            f"{km['flops'] / 1e9:.1f} GFLOP, {km['bytes'] / 1e6:.1f} MB), "
-            f"plain {km['plain_ms']:.3f} ms (turns {plain_turns}), library "
-            f"none (no single PyTorch call computes it), max |kernel-plain| "
+    turns = k2m["zamba2"]["turns"]
+    f64 = k2m["zamba2"]["f64_err"]
+    for var in ("wgmma_f32", "simt_f32"):
+        km = k2m["zamba2"][var]
+        log(f"K2 {var} at zamba2 q [{B},{H},{S},{D}], k/v [{B},{Hkv},{S},"
+            f"{D}] fp32 causal on {card}: {km['ms']:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in turns[var])}), bound "
+            f"{km['bound_ms']:.4f} ms ({km['bound_by']}, "
+            + ("three bf16 products for each, bf16 rate"
+               if var == "wgmma_f32" else "fp32 rate")
+            + f"; {km['flops'] / 1e9:.1f} GFLOP, {km['bytes'] / 1e6:.1f} "
+            f"MB), SDPA fp32 {km['library_ms']:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in turns['sdpa_f32'])}), plain "
+            f"fp32 {km['plain_ms']:.3f} ms, max |kernel-plain| "
             f"{km['max_abs_err']:.3g}, max |kernel-float64| "
-            f"{km['f64_err']:.3g} (fp32 plain version: "
-            f"{k3m['plain_f64_err']:.3g})")
+            f"{f64[var]:.3g} (fp32 plain version: {f64['plain']:.3g})")
+    for tag, L, bdt, names in K3_TIMED:
+        k3 = k3m[tag]
+        plain_turns = ", ".join(f"{t:.4f}" for t in k3["turns"]["plain"])
+        for var in names:
+            km = k3[var]
+            turns = ", ".join(f"{t:.4f}" for t in k3["turns"][var])
+            log(f"K3 {var} at x [8,{L},64,64] f32, B/C "
+                f"{str(bdt).replace('torch.', '')}, chunk 128 on {card}: "
+                f"{km['ms']:.4f} ms (turns {turns}), bound "
+                f"{km['bound_ms']:.4f} ms ({km['bound_by']}; "
+                f"{km['flops'] / 1e9:.2f} GFLOP, {km['bytes'] / 1e6:.1f} "
+                f"MB), plain {km['plain_ms']:.4f} ms (turns {plain_turns}),"
+                f" library none (no single PyTorch call computes it), max "
+                f"|kernel-plain| {km['max_abs_err']:.3g}, max "
+                f"|kernel-float64| {km['f64_err']:.3g} (fp32 plain "
+                f"version: {k3['plain_f64_err']:.3g})"
+                + (f"; of which the pre-pass (B and C into bf16 hi/lo "
+                   f"planes) {k3['prepass_ms']:.4f} ms"
+                   if var == "wgmma_split" else ""))
 
+    red = sv["reduced"]["counts"]
     print(json.dumps({"kernels": [
         kernel_line("fused_fold",
                     "src/repro_torch/kernels/fused_fold/csrc/fused_fold.cu",
@@ -3096,21 +3333,32 @@ def main() -> int:
                     "flash_attention_wgmma.cu",
                     "src/repro/kernels/flash_attention/kernel.py:33",
                     sv["k2_variants"]["wgmma"], k2m["zamba2"]["wgmma"]),
+        kernel_line("flash_attention_f32",
+                    "src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention_wgmma.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:33",
+                    sv["f32_k2_variants"]["wgmma_f32"],
+                    k2m["zamba2"]["wgmma_f32"]),
         kernel_line("flash_attention_simt",
                     "src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
                     "src/repro/kernels/flash_attention/kernel.py:33",
-                    sv["f32_k2_variants"]["simt"],
-                    k2m["zamba2"]["simt_f32"]),
+                    red[0]["simt"], k2m["zamba2"]["simt_f32"]),
         kernel_line("ssd_scan",
                     "src/repro_torch/kernels/ssm_scan/csrc/"
                     "ssd_scan_wgmma.cu",
                     "src/repro/kernels/ssm_scan/kernel.py:29",
-                    sv["k3_variants"]["wgmma"], k3m["wgmma"]),
+                    sv["k3_variants"]["wgmma"], k3m["serve"]["wgmma"]),
+        kernel_line("ssd_scan_split",
+                    "src/repro_torch/kernels/ssm_scan/csrc/"
+                    "ssd_scan_wgmma.cu",
+                    "src/repro/kernels/ssm_scan/kernel.py:29",
+                    sv["f32_k3_variants"]["wgmma_split"],
+                    k3m["serve_f32bc"]["wgmma_split"]),
         kernel_line("ssd_scan_simt",
                     "src/repro_torch/kernels/ssm_scan/csrc/ssd_scan.cu",
                     "src/repro/kernels/ssm_scan/kernel.py:29",
-                    sv["f32_k3_variants"]["simt"], k3m["simt"]),
+                    red[1]["simt"], k3m["serve"]["simt"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -118,6 +118,18 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float a, float b) 
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The split of the precision contract: hi = bf16(v), lo = bf16(v - hi) for
+// two values, packed as wgmma takes them (the first value in the low
+// half).  hi + lo holds v to about 2^-17 relative.
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 // ---- wgmma wrappers ------------------------------------------------------
 // *_ss_*: A and B from shared memory, both K-major; *_first overwrites the
 // accumulator (scale-d = 0).  *_rs_*: A from registers (four 32-bit regs of

@@ -1,19 +1,22 @@
 """The flash-attention CUDA kernels: build, bind, dispatch, launch.
 
 Port of ``src/repro/kernels/flash_attention/kernel.py``.  The Pallas kernel
-``_flash_kernel`` becomes two hand-written CUDA C++ kernels for ``sm_90a``,
-each built with ``nvcc`` at first use into ``build/kernels/`` and bound
-through ``ctypes``:
+``_flash_kernel`` becomes hand-written CUDA C++ kernels for ``sm_90a``,
+each library built with ``nvcc`` at first use into ``build/kernels/`` and
+bound through ``ctypes``:
 
-- ``csrc/flash_attention_wgmma.cu`` ("wgmma") takes bf16 and f16 at head
-  dims 64 and 128: TMA-fed ``wgmma`` tiles on the tensor cores;
-- ``csrc/flash_attention.cu`` ("simt") takes everything else the op
-  accepts (f32, and head dims 16 and 32): fp32 products on the CUDA cores.
+- ``csrc/flash_attention_wgmma.cu`` at head dims 64 and 128, on the
+  tensor cores through ``wgmma``, in two instances: "wgmma" for bf16 and
+  f16 (TMA-fed tiles), "wgmma_f32" for f32 under the split-precision
+  contract (every fp32 operand as bf16 hi/lo parts, three products for
+  each, fp32 sums);
+- ``csrc/flash_attention.cu`` ("simt") at head dims 16 and 32, in any
+  dtype: fp32 products on the CUDA cores.
 
-:func:`variant` is the rule between them.  It is a dispatch between two
-kernels, not a fallback: a failed build or launch raises.  Both take any
+:func:`variant` is the rule between them.  It is a dispatch between
+kernels, not a fallback: a failed build or launch raises.  All take any
 batch, head and sequence strides, so the model hands them ``[B, S, H, D]``
-activations as ``[B, H, S, D]`` views without a copy, and both mask their
+activations as ``[B, H, S, D]`` views without a copy, and all mask their
 own ragged edges: nothing is padded.  The plain version is
 ``ref.attention_ref``.
 """
@@ -31,10 +34,12 @@ from repro_torch.kernels._build import CudaLibrary, check_launch, tma_strides
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: head dims the simt kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
-#: dtypes and head dims the wgmma kernel takes
+#: dtypes and head dims the wgmma kernel takes: its bf16/f16 instance and
+#: its f32 (split-precision) instance
 WGMMA_DTYPES = (torch.bfloat16, torch.float16)
+WGMMA_F32_DTYPE = torch.float32
 WGMMA_HEAD_DIMS = (64, 128)
-VARIANTS = ("wgmma", "simt")
+VARIANTS = ("wgmma", "wgmma_f32", "simt")
 _CSRC = Path(__file__).resolve().parent / "csrc"
 
 
@@ -57,10 +62,13 @@ WGMMA_LIBRARY = CudaLibrary(_CSRC / "flash_attention_wgmma.cu",
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernel runs a call: ``"wgmma"`` for bf16/f16 at head dim 64
-    or 128, ``"simt"`` otherwise."""
-    if dtype in WGMMA_DTYPES and head_dim in WGMMA_HEAD_DIMS:
-        return "wgmma"
+    """Which kernel runs a call: at head dim 64 or 128 ``"wgmma"`` for
+    bf16/f16 and ``"wgmma_f32"`` for f32; ``"simt"`` otherwise."""
+    if head_dim in WGMMA_HEAD_DIMS:
+        if dtype in WGMMA_DTYPES:
+            return "wgmma"
+        if dtype == WGMMA_F32_DTYPE:
+            return "wgmma_f32"
     return "simt"
 
 
@@ -120,8 +128,8 @@ def _launch(lib: CudaLibrary, name: str, q, k, v, o, strides, code, B, H,
 def flash_attention_simt(q, k, v, scale: float, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` (any dtype the op takes, head dims
-    16-128).  Bumps ``flash_attention_cuda.launches`` and its ``"simt"``
-    count."""
+    16-128: the dispatch sends it 16 and 32).  Bumps
+    ``flash_attention_cuda.launches`` and its ``"simt"`` count."""
     code, B, H, Hkv, Sq, Skv, D = _check(q, k, v)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty_like(q)      # keeps q's strides: a [B,S,H,D] view stays one
@@ -134,20 +142,24 @@ def flash_attention_simt(q, k, v, scale: float, causal: bool = True,
 
 def flash_attention_wgmma(q, k, v, scale: float, causal: bool = True,
                           window: int = 0) -> torch.Tensor:
-    """Launch ``csrc/flash_attention_wgmma.cu`` (bf16/f16, head dim 64 or
-    128).  An operand TMA cannot read as it lies is copied first
-    (:func:`wgmma_operands`); the output keeps q's strides.  Bumps
-    ``flash_attention_cuda.launches`` and its ``"wgmma"`` count."""
+    """Launch ``csrc/flash_attention_wgmma.cu`` at head dim 64 or 128: its
+    bf16/f16 instance, or for f32 its split-precision instance.  An
+    operand TMA (or the f32 instance's 16-byte loads) cannot read as it
+    lies is copied first (:func:`wgmma_operands`); the output keeps q's
+    strides.  Bumps ``flash_attention_cuda.launches`` and the count of
+    the instance's variant, ``"wgmma"`` or ``"wgmma_f32"``."""
     code, B, H, Hkv, Sq, Skv, D = _check(q, k, v)
-    if q.dtype not in WGMMA_DTYPES or D not in WGMMA_HEAD_DIMS:
-        raise ValueError(f"the wgmma kernel takes {WGMMA_DTYPES} at head "
-                         f"dims {WGMMA_HEAD_DIMS}, got {q.dtype}, D={D}")
+    name = variant(q.dtype, D)
+    if name == "simt":
+        raise ValueError(f"the wgmma kernel takes "
+                         f"{WGMMA_DTYPES + (WGMMA_F32_DTYPE,)} at head dims "
+                         f"{WGMMA_HEAD_DIMS}, got {q.dtype}, D={D}")
     if Sq < 1 or Skv < 1:
         raise ValueError(f"empty sequence: Sq={Sq}, Skv={Skv}")
     q, k, v, o, strides = wgmma_operands(q, k, v)
     _launch(WGMMA_LIBRARY, "flash_attention_wgmma_launch", q, k, v, o,
             strides, code, B, H, Hkv, Sq, Skv, D, scale, causal, window)
-    _count("wgmma")
+    _count(name)
     return o
 
 
@@ -165,7 +177,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
                          f"got {q.device}")
-    if variant(q.dtype, int(q.shape[-1])) == "wgmma":
+    if variant(q.dtype, int(q.shape[-1])) != "simt":
         return flash_attention_wgmma(q, k, v, scale, causal, window)
     return flash_attention_simt(q, k, v, scale, causal, window)
 

@@ -2,11 +2,13 @@
 // a given or a zero state: TMA-fed wgmma tiles, one CTA per stream.
 //
 // Replaces repro/kernels/ssm_scan/kernel.py::_ssd_kernel (the Pallas TPU
-// kernel) for bf16 B and C at P = N = 64 and chunks of 128 steps;
-// ssd_scan.cu beside it keeps f32/f16 B and C and the narrower dims.  Same
-// function: for every (batch b, head h) stream, with x [B, L, H, P] f32 (dt
-// folded in), the decay a [B, L, H] f32 and B, C [B, L, N] bf16 shared by
-// all heads (read at batch b), per chunk of Q = 128 steps with cum the
+// kernel) at P = N = 64 and a configured chunk of 128 steps, for any L and
+// any B/C dtype, in two instances: bf16 B and C (ssd_scan_wgmma_launch),
+// and f32 or f16 B and C (ssd_scan_split_launch, the split instance).
+// ssd_scan.cu beside it keeps the narrower dims and chunks under 128.
+// Same function: for every (batch b, head h) stream, with x [B, L, H, P]
+// f32 (dt folded in), the decay a [B, L, H] f32 and B, C [B, L, N] shared
+// by all heads (read at batch b), per chunk of Q = 128 steps with cum the
 // inclusive cumsum of log(max(a, 1e-20)):
 //
 //   M[i, j]  = (C_i . B_j) exp(cum_i - cum_j) for i >= j, else exactly 0
@@ -14,14 +16,18 @@
 //   S       <- exp(cum_{Q-1}) S + sum_j exp(cum_{Q-1} - cum_j) x_j^T B_j
 //
 // Steps past L are read as a = 1 and x = B = C = 0 (TMA fills the rows
-// with zeros) and are not written.  Outputs: y [B, L, H, P] f32 and the
-// final state [B, H, P, N] f32.  The state before the first step is the
-// initial state [B, H, P, N] f32 where one is given, else zero: warpgroup
-// 0 loads it into its state accumulator, in the accumulator's fragment
-// layout (the inverse of the final store), so the first chunk's C.S^T sees
-// it through the same hi/lo split as every later chunk.
+// with zeros) and are not written: a ragged tail, and a sequence shorter
+// than one chunk, which is one chunk padded to 128.  That is the
+// reference's arithmetic at Q = min(chunk, L): the padded steps add 0 to
+// cum and nothing to y or the state; only the rounding differs.
+// Outputs: y [B, L, H, P] f32 and the final state [B, H, P, N] f32.  The
+// state before the first step is the initial state [B, H, P, N] f32 where
+// one is given, else zero: warpgroup 0 loads it into its state
+// accumulator, in the accumulator's fragment layout (the inverse of the
+// final store), so the first chunk's C.S^T sees it through the same hi/lo
+// split as every later chunk.
 //
-// Precision contract.  B and C are bf16, so they enter the tensor cores
+// Precision contract.  In the bf16 instance B and C enter the tensor cores
 // exactly.  Every fp32 operand (x, the decay matrix M, the carried state S,
 // x scaled by the decay to the chunk's end) enters only as an
 // error-compensated split, hi = bf16(v), lo = bf16(v - hi):
@@ -32,12 +38,17 @@
 // and every sum accumulates in fp32 (the wgmma accumulators).  What is left
 // out (lo.lo, and the part of v below lo) is about 2^-17 relative per
 // operand; no fp32 operand is rounded once to bf16, and nothing runs in
-// TF32.
+// TF32.  In the split instance B and C are fp32 (or f16) operands too, so
+// each product with one of them takes three: C_hi.B_hi^T + C_hi.B_lo^T +
+// C_lo.B_hi^T, C_hi.S_hi^T + C_hi.S_lo^T + C_lo.S_hi^T, and xd_hi^T.B_hi +
+// xd_hi^T.B_lo + xd_lo^T.B_hi: 12 products against the bf16 instance's 8.
+// An f16 value splits exactly.
 //
 // Bound.  At the serving call (B 8, L 2048, H 64, P = N = 64, Q = 128) the
 // scan must move about 553 MB (x and y in f32 dominate): 0.165 ms at 3.35
 // TB/s.  Its 34.6 GFLOP would take 0.52 ms on the CUDA cores in fp32; split
-// into bf16 products it is about 80 GFLOP of tensor-core work, under 0.1 ms.
+// into bf16 products it is about 80 GFLOP of tensor-core work, under 0.1 ms
+// (about 120 GFLOP, 0.12 ms, in the split instance).
 //
 // Design.  One CTA per stream walks its chunks in order and keeps the fp32
 // state on chip, so device memory sees each input once and never the state
@@ -78,12 +89,26 @@
 //   x hi/lo, xd hi/lo bf16           65,536   (single: rewritten each chunk)
 //   S hi/lo bf16                     16,384
 //   cum, exp(cum), dout, 2 stages     3,072
-//   mbarriers                            48   -> 216,112 + 1,024 to align
+//   mbarriers                            64   -> 216,128 + 1,024 to align
 // Only the inputs are double-buffered.  A second set of split tiles would
 // let the next chunk's split overlap this chunk's products, but its 64 KB
-// do not fit.  Every mbarrier wait traps after about 2^34 cycles (a lost
-// arrival), and the launcher refuses a build with too few registers for
-// setmaxnreg.
+// do not fit.
+//
+// The split instance.  TMA copies and does not convert, and hi/lo B and C
+// tiles of one chunk take the 64 KB that two stages of bf16 B and C take.
+// So a small pre-pass kernel (split_bc_kernel, ssd_scan_split_bc_launch,
+// launched first on the same stream) splits B and C once per batch into
+// four bf16 planes in scratch memory: B hi, B lo, C hi, C lo [Bsz, L, 64]
+// each (all H streams of a
+// batch read the same rows, so splitting per stream would repeat the work
+// H times).  The scan then TMA-loads a chunk's four tiles into a single
+// B/C stage guarded by bc_full / bc_empty, while x stays double-buffered:
+// the shared-memory layout above is unchanged.  The producer refills the
+// B/C stage once the consumers release the previous chunk's, after it has
+// loaded the next x and computed its cumsum.
+//
+// Every mbarrier wait traps after about 2^34 cycles (a lost arrival), and
+// the launcher refuses a build with too few registers for setmaxnreg.
 
 #include "../../common/hopper.cuh"
 
@@ -117,22 +142,12 @@ constexpr int SL_OFF = SH_OFF + S_BYTES;
 constexpr int CUM_OFF = SL_OFF + S_BYTES;
 constexpr int BAR_OFF = CUM_OFF + STAGES * CUM_BYTES;
 // barriers: full[STAGES] (TMA), cum_full[STAGES] (producer warp),
-// empty[STAGES] (lane 0 of each consumer warp)
-constexpr int SMEM_BYTES = BAR_OFF + 3 * STAGES * 8;
+// empty[STAGES] (lane 0 of each consumer warp), and for the split instance
+// bc_full (TMA) and bc_empty (lane 0 of each consumer warp)
+constexpr int SMEM_BYTES = BAR_OFF + (3 * STAGES + 2) * 8;
 constexpr int ALLOC = SMEM_BYTES + 1024;   // room to align to 1024
 static_assert(ALLOC <= 232448, "over the 227 KB a CTA may use");
 static_assert(SH_OFF % 1024 == 0 && XH_OFF % 1024 == 0, "tile alignment");
-
-// hi = bf16(v), lo = bf16(v - hi) for two values, packed as wgmma takes
-// them (the first value in the low half).
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 // K-major 128-byte-swizzled operand: rows of 64 bf16, 8-row groups 1024
 // bytes apart.  MN-major: the same tile read along its rows.
@@ -162,11 +177,31 @@ __device__ __forceinline__ uint32_t bar_cum(uint32_t base, int s) {
 __device__ __forceinline__ uint32_t bar_empty(uint32_t base, int s) {
   return base + BAR_OFF + 8u * (2 * STAGES + s);
 }
+__device__ __forceinline__ uint32_t bar_bc_full(uint32_t base) {
+  return base + BAR_OFF + 8u * (3 * STAGES);
+}
+__device__ __forceinline__ uint32_t bar_bc_empty(uint32_t base) {
+  return base + BAR_OFF + 8u * (3 * STAGES + 1);
+}
+
+// Where chunk stage s's B and C tiles lie.  bf16 instance: B and C, two
+// stages each.  Split instance: one stage of B hi, B lo, C hi, C lo in the
+// same 64 KB (the lo tiles are hi + BC_BYTES).
+template <bool SPLIT>
+__device__ __forceinline__ uint32_t b_tile(uint32_t base, int s) {
+  return SPLIT ? base + B_OFF : base + B_OFF + s * BC_BYTES;
+}
+template <bool SPLIT>
+__device__ __forceinline__ uint32_t c_tile(uint32_t base, int s) {
+  return SPLIT ? base + B_OFF + 2 * BC_BYTES : base + C_OFF + s * BC_BYTES;
+}
 
 // Consumer warpgroup W: chunk rows [64 W, 64 W + 64).  FROM_STATE: the
 // state before the first chunk is cx.init (else zero); a template
 // argument, so that the scan from zero compiles as it did without it.
-template <int W, bool FROM_STATE>
+// SPLIT: B and C arrive as bf16 hi/lo tiles, and every product with one
+// of them takes three products (hi.hi + hi.lo + lo.hi).
+template <int W, bool FROM_STATE, bool SPLIT>
 __device__ __forceinline__ void consume(const Ctx& cx) {
   constexpr int KS = (W + 1) * 4;       // k-steps of 16 keys in M.x
   constexpr int NCB = (W + 1) * 64;     // keys of C.B^T this group needs
@@ -202,8 +237,8 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
     const int s = ck % STAGES;
     const uint32_t ph = (ck / STAGES) & 1;
     const int t0 = ck * Q;
-    const uint32_t bs = base + B_OFF + s * BC_BYTES;
-    const uint32_t cs = base + C_OFF + s * BC_BYTES;
+    const uint32_t bs = b_tile<SPLIT>(base, s);
+    const uint32_t cs = c_tile<SPLIT>(base, s);
     const float* xf =
         reinterpret_cast<const float*>(cx.gbase + X_OFF + s * X_BYTES);
     const float* cum =
@@ -212,6 +247,7 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
     const float* dout = cum + 2 * Q;
     mbar_wait(bar_cum(base, s), ph);
     mbar_wait(bar_full(base, s), ph);
+    if constexpr (SPLIT) mbar_wait(bar_bc_full(base), ck & 1);
 
     // 1a. cb = C.B^T, issued first: the tensor cores run it under the split
     float cb[NCB / 2];
@@ -219,13 +255,19 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
     for (int i = 0; i < NCB / 2; ++i) cb[i] = 0.f;
     const uint32_t ca = cs + W * 64 * 128;    // this group's 64 rows of C
     wg_fence();
+    // split: C_hi.B_hi^T + C_hi.B_lo^T + C_lo.B_hi^T
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if constexpr (W == 0)
-        wgmma_ss_n64_bf16<0, 0>(cb, kmajor(ca + kk * 32),
-                                kmajor(bs + kk * 32), 1);
-      else
-        wgmma_ss_n128_bf16(cb, kmajor(ca + kk * 32), kmajor(bs + kk * 32));
+    for (int p = 0; p < (SPLIT ? 3 : 1); ++p) {
+      const uint32_t cp = ca + (p == 2 ? BC_BYTES : 0);
+      const uint32_t bp = bs + (p == 1 ? BC_BYTES : 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (W == 0)
+          wgmma_ss_n64_bf16<0, 0>(cb, kmajor(cp + kk * 32),
+                                  kmajor(bp + kk * 32), 1);
+        else
+          wgmma_ss_n128_bf16(cb, kmajor(cp + kk * 32), kmajor(bp + kk * 32));
+      }
     }
     wg_commit();
     fence_regs(cb);
@@ -288,6 +330,12 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
       for (int kk = 0; kk < 4; ++kk)
         wgmma_ss_n64_bf16<0, 0>(y, kmajor(ca + kk * 32),
                                 kmajor(base + SL_OFF + kk * 32), 1);
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64_bf16<0, 0>(y, kmajor(ca + BC_BYTES + kk * 32),
+                                  kmajor(base + SH_OFF + kk * 32), 1);
+      }
       wg_commit();
       fence_regs(y);
       wg_wait<1>();
@@ -346,6 +394,10 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
                                 bt, 1);
         wgmma_ss_n64_bf16<1, 1>(S, mnmajor(base + DL_OFF + ks * 16 * 128),
                                 bt, 1);
+        if constexpr (SPLIT)
+          wgmma_ss_n64_bf16<1, 1>(
+              S, mnmajor(base + DH_OFF + ks * 16 * 128),
+              mnmajor(bs + BC_BYTES + ks * 16 * 128), 1);
       }
       wg_commit();
       fence_regs(S);
@@ -372,7 +424,10 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
       wg_wait<0>();
       fence_regs(S);
     }
-    if (lane == 0) mbar_arrive(bar_empty(base, s));
+    if (lane == 0) {
+      mbar_arrive(bar_empty(base, s));
+      if constexpr (SPLIT) mbar_arrive(bar_bc_empty(base));
+    }
     named_bar_sync(1, NC);
   }
 
@@ -388,7 +443,7 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
   }
 }
 
-template <bool FROM_STATE>
+template <bool FROM_STATE, bool SPLIT>
 __global__ void __launch_bounds__(NT, 1)
 ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                  const __grid_constant__ CUtensorMap tm_b,
@@ -410,6 +465,8 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
       mbar_init(bar_cum(base, s), 32);     // every lane of the producer
       mbar_init(bar_empty(base, s), NC / 32);  // lane 0 of each consumer warp
     }
+    mbar_init(bar_bc_full(base), 1);
+    mbar_init(bar_bc_empty(base), NC / 32);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -430,10 +487,12 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
       mbar_wait(bar_empty(base, s), ((ck / STAGES) & 1) ^ 1);
       if (lane == 0) {
         const uint32_t full = bar_full(base, s);
-        mbar_expect_tx(full, X_BYTES + 2 * BC_BYTES);
+        mbar_expect_tx(full, SPLIT ? X_BYTES : X_BYTES + 2 * BC_BYTES);
         tma_load(base + X_OFF + s * X_BYTES, &tm_x, full, 0, t0, h, b);
-        tma_load_3d(base + B_OFF + s * BC_BYTES, &tm_b, full, 0, t0, b);
-        tma_load_3d(base + C_OFF + s * BC_BYTES, &tm_c, full, 0, t0, b);
+        if constexpr (!SPLIT) {
+          tma_load_3d(base + B_OFF + s * BC_BYTES, &tm_b, full, 0, t0, b);
+          tma_load_3d(base + C_OFF + s * BC_BYTES, &tm_c, full, 0, t0, b);
+        }
       }
       // inclusive cumsum of log(max(a, 1e-20)): 4 steps a lane, then a
       // scan across lanes; steps past L decay by 1
@@ -463,6 +522,21 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         cs[2 * Q + j] = expf(last - c);
       }
       mbar_arrive(bar_cum(base, s));
+      // split: the single B/C stage is refilled once the consumers are
+      // done with the previous chunk's (tm_b maps the four planes B hi,
+      // B lo, C hi, C lo as batches p * Bsz + b)
+      if constexpr (SPLIT) {
+        if (lane == 0) {
+          const uint32_t full = bar_bc_full(base);
+          const int Bsz = gridDim.x / H;
+          mbar_wait(bar_bc_empty(base), (ck & 1) ^ 1);
+          mbar_expect_tx(full, 4 * BC_BYTES);
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            tma_load_3d(base + B_OFF + p * BC_BYTES, &tm_b, full, 0, t0,
+                        p * Bsz + b);
+        }
+      }
     }
     return;
   }
@@ -475,8 +549,57 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
          init_state ? init_state + static_cast<long long>(blockIdx.x) * P * N
                     : nullptr,
          L, n_chunks};
-  if (threadIdx.x < 128) consume<0, FROM_STATE>(cx);
-  else consume<1, FROM_STATE>(cx);
+  if (threadIdx.x < 128) consume<0, FROM_STATE, SPLIT>(cx);
+  else consume<1, FROM_STATE, SPLIT>(cx);
+}
+
+// The split instance's pre-pass: B and C (f32 or f16, [Bsz, L, 64] with
+// the caller's strides) into bf16 planes [4][Bsz][L][64]: B hi, B lo, C hi,
+// C lo.  Once per batch, not per stream: all H heads read the same rows.
+// An f16 value splits exactly (its 11 significant bits fit in two bf16
+// parts).  One thread per 8 values.
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __half* p, float (&v)[8]) {
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+  const __half2* h = reinterpret_cast<const __half2*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+template <typename T>
+__global__ void split_bc_kernel(const T* __restrict__ Bm,
+                                const T* __restrict__ Cm, long long bsb,
+                                long long bst, long long csb, long long cst,
+                                __nv_bfloat16* __restrict__ out, int Bsz,
+                                int L) {
+  const long long rows = static_cast<long long>(Bsz) * L;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= 2 * rows * (N / 8)) return;
+  const int q = static_cast<int>(i % (N / 8));
+  const long long r = (i / (N / 8)) % rows;
+  const int which = static_cast<int>(i / (rows * (N / 8)));   // 0 B, 1 C
+  const long long b = r / L, t = r % L;
+  const T* src = which ? Cm + b * csb + t * cst : Bm + b * bsb + t * bst;
+  float v[8];
+  load8(src + q * 8, v);
+  uint4 hi, lo;
+  split2(v[0], v[1], hi.x, lo.x);
+  split2(v[2], v[3], hi.y, lo.y);
+  split2(v[4], v[5], hi.z, lo.z);
+  split2(v[6], v[7], hi.w, lo.w);
+  *reinterpret_cast<uint4*>(out + ((2 * which) * rows + r) * N + q * 8) = hi;
+  *reinterpret_cast<uint4*>(out + ((2 * which + 1) * rows + r) * N + q * 8) =
+      lo;
 }
 
 // ---- host side -------------------------------------------------------------
@@ -523,18 +646,47 @@ CUresult encode_bc(CUtensorMap* map, const void* p, int L, int B,
 
 constexpr int ENCODE_ERROR = 1000;   // + CUresult of cuTensorMapEncodeTiled
 
+
+// Set up and launch one instance of the scan.  The split instance reads
+// all four B/C planes through mb (mc is not read).
+template <bool SPLIT>
+int launch_scan(const CUtensorMap& mx, const CUtensorMap& mb,
+                const CUtensorMap& mc, const void* a, void* y,
+                void* state_out, const void* init_state, int Bsz, int L,
+                int H, const long long* st, cudaStream_t stream) {
+  // setmaxnreg moves registers between the warpgroups of the CTA's own
+  // allocation: the kernel must start with enough of them, or the
+  // consumers' setmaxnreg.inc would wait forever.
+  auto* kernel = init_state ? ssd_wgmma_kernel<true, SPLIT>
+                            : ssd_wgmma_kernel<false, SPLIT>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.numRegs * NT < 128 * PRODUCER_REGS + NC * CONSUMER_REGS)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ALLOC);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<Bsz * H, NT, ALLOC, stream>>>(
+      mx, mb, mc, static_cast<const float*>(a), static_cast<float*>(y),
+      static_cast<float*>(state_out), static_cast<const float*>(init_state),
+      L, H, st[3], st[4], st[5], st[10], st[11], st[12]);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The same interface as ssd_scan_launch (ssd_scan.cu), for what this kernel
-// takes: bc_dtype 1 (bf16), P = N = 64, Q = 128, L >= 1.  strides holds 13
-// element strides: x (batch, step, head), a (batch, step, head), B (batch,
-// step), C (batch, step), y (batch, step, head); the innermost strides of
-// x, B, C and y are 1.  x, B and C need 16-byte aligned bases and strides
-// of a multiple of 16 bytes (TMA); y 8-byte alignment.  The final state is
-// written contiguous [B*H, P, N]; init_state, contiguous [B*H, P, N] f32
-// with 8-byte alignment, is the state before step 0 (null: zero).  Returns
-// 0, a CUDA error code, or 1000 + the CUresult of a failed tensor-map
-// encoding.
+// takes: bc_dtype 1 (bf16), P = N = 64, Q = 128 (the configured chunk: a
+// sequence shorter than one chunk is one chunk padded with steps of a = 1
+// and x = B = C = 0), L >= 1.  strides holds 13 element strides: x (batch,
+// step, head), a (batch, step, head), B (batch, step), C (batch, step), y
+// (batch, step, head); the innermost strides of x, B, C and y are 1.  x, B
+// and C need 16-byte aligned bases and strides of a multiple of 16 bytes
+// (TMA); y 8-byte alignment.  The final state is written contiguous [B*H,
+// P, N]; init_state, contiguous [B*H, P, N] f32 with 8-byte alignment, is
+// the state before step 0 (null: zero).  Returns 0, a CUDA error code, or
+// 1000 + the CUresult of a failed tensor-map encoding.
 extern "C" int ssd_scan_wgmma_launch(const void* x, const void* a,
                                      const void* Bm, const void* Cm,
                                      int bc_dtype, void* y, void* state_out,
@@ -544,26 +696,60 @@ extern "C" int ssd_scan_wgmma_launch(const void* x, const void* a,
                                      void* stream) {
   if (bc_dtype != 1 || P_ != P || N_ != N || Q_ != Q || L < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  // setmaxnreg moves registers between the warpgroups of the CTA's own
-  // allocation: the kernel must start with enough of them, or the
-  // consumers' setmaxnreg.inc would wait forever.
-  auto* kernel = init_state ? ssd_wgmma_kernel<true> : ssd_wgmma_kernel<false>;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (attr.numRegs * NT < 128 * PRODUCER_REGS + NC * CONSUMER_REGS)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ALLOC);
-  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap mx, mb, mc;
   CUresult r = encode_x(&mx, x, L, H, Bsz, st);
   if (r == CUDA_SUCCESS) r = encode_bc(&mb, Bm, L, Bsz, st[6], st[7]);
   if (r == CUDA_SUCCESS) r = encode_bc(&mc, Cm, L, Bsz, st[8], st[9]);
   if (r != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(r);
-  kernel<<<Bsz * H, NT, ALLOC, static_cast<cudaStream_t>(stream)>>>(
-      mx, mb, mc, static_cast<const float*>(a), static_cast<float*>(y),
-      static_cast<float*>(state_out), static_cast<const float*>(init_state),
-      L, H, st[3], st[4], st[5], st[10], st[11], st[12]);
+  return launch_scan<false>(mx, mb, mc, a, y, state_out, init_state, Bsz, L,
+                            H, st, static_cast<cudaStream_t>(stream));
+}
+
+// The split instance's pre-pass: B and C (bc_dtype 0 f32 or 2 f16, [Bsz,
+// L, 64]; st holds their batch and step element strides, B's then C's,
+// with unit stride along N, 16-byte aligned bases and strides of a
+// multiple of 16 bytes) into planes, 4 * Bsz * L * 64 bf16 values,
+// 16-byte aligned: B hi, B lo, C hi, C lo, each [Bsz, L, 64].  Returns 0
+// or a CUDA error code.
+extern "C" int ssd_scan_split_bc_launch(const void* Bm, const void* Cm,
+                                        int bc_dtype, int Bsz, int L,
+                                        const long long* st, void* planes,
+                                        void* stream) {
+  if ((bc_dtype != 0 && bc_dtype != 2) || L < 1 || planes == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  auto* out = static_cast<__nv_bfloat16*>(planes);
+  const long long threads = 2LL * Bsz * L * (N / 8);
+  const int blocks = static_cast<int>((threads + 255) / 256);
+  if (bc_dtype == 0)
+    split_bc_kernel<float><<<blocks, 256, 0, strm>>>(
+        static_cast<const float*>(Bm), static_cast<const float*>(Cm), st[0],
+        st[1], st[2], st[3], out, Bsz, L);
+  else
+    split_bc_kernel<__half><<<blocks, 256, 0, strm>>>(
+        static_cast<const __half*>(Bm), static_cast<const __half*>(Cm),
+        st[0], st[1], st[2], st[3], out, Bsz, L);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The split instance, after the pre-pass: the interface of
+// ssd_scan_wgmma_launch with Bm = Cm = the pre-pass's planes (their batch
+// and step strides in st[6], st[7]; st[8], st[9] are not read) and
+// bc_dtype 0 or 2, the dtype the planes were split from.
+extern "C" int ssd_scan_split_launch(const void* x, const void* a,
+                                     const void* Bm, const void* Cm,
+                                     int bc_dtype, void* y, void* state_out,
+                                     const void* init_state,
+                                     int Bsz, int L, int H, int P_, int N_,
+                                     int Q_, const long long* st,
+                                     void* stream) {
+  if ((bc_dtype != 0 && bc_dtype != 2) || P_ != P || N_ != N || Q_ != Q ||
+      L < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mb;
+  CUresult r = encode_x(&mx, x, L, H, Bsz, st);
+  if (r == CUDA_SUCCESS) r = encode_bc(&mb, Bm, L, 4 * Bsz, st[6], st[7]);
+  if (r != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(r);
+  return launch_scan<true>(mx, mb, mb, a, y, state_out, init_state, Bsz, L,
+                           H, st, static_cast<cudaStream_t>(stream));
 }

@@ -1,22 +1,24 @@
 """The SSD-scan CUDA kernels: build, bind, dispatch, launch.
 
 Port of ``src/repro/kernels/ssm_scan/kernel.py``.  The Pallas kernel
-``_ssd_kernel`` becomes two hand-written CUDA C++ kernels for ``sm_90a``,
-each built with ``nvcc`` at first use into ``build/kernels/`` and bound
-through ``ctypes``:
+``_ssd_kernel`` becomes hand-written CUDA C++ kernels for ``sm_90a``, each
+library built with ``nvcc`` at first use into ``build/kernels/`` and
+bound through ``ctypes``:
 
-- ``csrc/ssd_scan_wgmma.cu`` ("wgmma") takes bf16 B/C at P = N = 64 and
-  chunks of 128 steps: TMA-fed ``wgmma`` tiles on the bf16 tensor cores,
-  with every fp32 operand split into bf16 hi/lo parts;
+- ``csrc/ssd_scan_wgmma.cu`` at P = N = 64 and a configured chunk of 128
+  steps, for any L (a sequence shorter than a chunk is one padded chunk):
+  TMA-fed ``wgmma`` tiles on the bf16 tensor cores, with every fp32
+  operand split into bf16 hi/lo parts, in two instances: "wgmma" for bf16
+  B/C, "wgmma_split" for f32 or f16 B/C (split too, by a pre-pass);
 - ``csrc/ssd_scan.cu`` ("simt") takes everything else the op accepts
-  (f32 or f16 B/C, P and N up to 64, chunks up to 128): fp32 products on
-  the CUDA cores.
+  (P or N under 64, a configured chunk under 128): fp32 products on the
+  CUDA cores.
 
-:func:`variant` is the rule between them.  It is a dispatch between two
-kernels, not a fallback: a failed build or launch raises.  Both read the
+:func:`variant` is the rule between them.  It is a dispatch between
+kernels, not a fallback: a failed build or launch raises.  All read the
 model layout directly: x ``[B, L, H, P]``, a ``[B, L, H]`` and B/C
 ``[B, L, N]`` indexed at each stream's batch, with the caller's strides,
-and both pad the tail chunk themselves.  Both start from a given initial
+and all pad the tail chunk themselves.  All start from a given initial
 state ``[B, H, P, N]`` fp32, or from zero.  The plain version is
 ``ref.ssd_chunked_ref`` from the same state.
 """
@@ -34,35 +36,49 @@ from repro_torch.kernels._build import CudaLibrary, check_launch, tma_strides
 _BC_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the simt kernel's limits: chunk, head dim P, state dim N
 MAX_CHUNK, MAX_P, MAX_N = 128, 64, 64
-#: what the wgmma kernel takes: B/C dtype, P, N and chunk
-WGMMA_BC_DTYPE, WGMMA_P, WGMMA_N, WGMMA_CHUNK = torch.bfloat16, 64, 64, 128
-VARIANTS = ("wgmma", "simt")
+#: what the wgmma kernel takes: P, N and the configured chunk; its bf16
+#: instance takes bf16 B/C, its split instance f32 or f16 B/C
+WGMMA_P, WGMMA_N, WGMMA_CHUNK = 64, 64, 128
+WGMMA_BC_DTYPE = torch.bfloat16
+WGMMA_SPLIT_BC_DTYPES = (torch.float32, torch.float16)
+VARIANTS = ("wgmma", "wgmma_split", "simt")
 _CSRC = Path(__file__).resolve().parent / "csrc"
+#: each launcher's arguments (p: pointer, i: int): the scans', and the
+#: split instance's pre-pass
+_SCAN_ARGS = "ppppipppiiiiiipp"
+_SPLIT_BC_ARGS = "ppiiippp"
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 
 
-def _binder(name: str):
+def _binder(**signatures: str):
     def bind(lib: ctypes.CDLL) -> None:
-        fn = getattr(lib, name)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, i, i, p, p]
-        fn.restype = ctypes.c_int
+        for name, args in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [_CTYPES[c] for c in args]
+            fn.restype = ctypes.c_int
     return bind
 
 
-LIBRARY = CudaLibrary(_CSRC / "ssd_scan.cu", _binder("ssd_scan_launch"))
+LIBRARY = CudaLibrary(_CSRC / "ssd_scan.cu",
+                      _binder(ssd_scan_launch=_SCAN_ARGS))
 #: links libcuda for ``cuTensorMapEncodeTiled``
 WGMMA_LIBRARY = CudaLibrary(_CSRC / "ssd_scan_wgmma.cu",
-                            _binder("ssd_scan_wgmma_launch"),
+                            _binder(ssd_scan_wgmma_launch=_SCAN_ARGS,
+                                    ssd_scan_split_launch=_SCAN_ARGS,
+                                    ssd_scan_split_bc_launch=_SPLIT_BC_ARGS),
                             extra_flags=("-lcuda",))
 
 
 def variant(bc_dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
-    """Which kernel runs a call: ``"wgmma"`` for bf16 B/C at P = N = 64
-    with chunks of 128 steps (``chunk`` is the chunk the call runs,
-    ``min(chunk, L)``), ``"simt"`` otherwise."""
-    if (bc_dtype == WGMMA_BC_DTYPE and P == WGMMA_P and N == WGMMA_N
-            and chunk == WGMMA_CHUNK):
-        return "wgmma"
+    """Which kernel runs a call: at P = N = 64 with a configured chunk of
+    128 steps (for any L: a shorter sequence is one padded chunk),
+    ``"wgmma"`` for bf16 B/C and ``"wgmma_split"`` for f32 or f16 B/C;
+    ``"simt"`` otherwise."""
+    if P == WGMMA_P and N == WGMMA_N and chunk == WGMMA_CHUNK:
+        if bc_dtype == WGMMA_BC_DTYPE:
+            return "wgmma"
+        if bc_dtype in WGMMA_SPLIT_BC_DTYPES:
+            return "wgmma_split"
     return "simt"
 
 
@@ -90,7 +106,7 @@ def _check(x, a, Bm, Cm, chunk, init_state=None
         raise ValueError(f"init_state must be float32 [{Bsz}, {H}, {P}, "
                          f"{N}] on x's device, got {init_state.dtype} "
                          f"{tuple(init_state.shape)} on {init_state.device}")
-    Q = min(int(chunk), L)
+    Q = min(int(chunk), L)          # the simt kernel's chunk
     if not (1 <= Q <= MAX_CHUNK and P <= MAX_P and N <= MAX_N):
         raise ValueError(f"chunk {Q}, P {P}, N {N} outside the kernel's "
                          f"limits ({MAX_CHUNK}, {MAX_P}, {MAX_N})")
@@ -122,8 +138,8 @@ def _launch(lib: CudaLibrary, name: str, x, a, Bm, Cm, init_state, strides,
 def ssd_scan_simt(x, a, Bm, Cm, chunk: int, init_state=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/ssd_scan.cu`` (f32, bf16 or f16 B/C; P, N <= 64;
-    chunks up to 128).  Bumps ``ssd_scan_cuda.launches`` and its
-    ``"simt"`` count."""
+    chunks of ``min(chunk, L)`` up to 128).  Bumps
+    ``ssd_scan_cuda.launches`` and its ``"simt"`` count."""
     code, Bsz, L, H, P, N, Q = _check(x, a, Bm, Cm, chunk, init_state)
     x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous()
                  for t in (x, Bm, Cm))
@@ -135,24 +151,53 @@ def ssd_scan_simt(x, a, Bm, Cm, chunk: int, init_state=None
     return out
 
 
+def split_bc(Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+    """The split instance's pre-pass: f32 or f16 ``Bm, Cm [B, L, 64]`` on
+    the card (as :func:`tma_strides` reads them) into bf16 planes ``[4, B,
+    L, 64]``: B hi, B lo, C hi, C lo (hi = bf16(v), lo = bf16(v - hi)).
+    Counts no launch of its own: it is part of ``"wgmma_split"``."""
+    code = _BC_CODES[Bm.dtype]
+    Bsz, L, N = Bm.shape
+    planes = torch.empty((4, Bsz, L, N), dtype=torch.bfloat16,
+                         device=Bm.device)
+    st = (ctypes.c_longlong * 4)(*tma_strides(Bm), *tma_strides(Cm))
+    fn = WGMMA_LIBRARY.get().ssd_scan_split_bc_launch
+    with torch.cuda.device(Bm.device):
+        stream = torch.cuda.current_stream(Bm.device).cuda_stream
+        err = fn(Bm.data_ptr(), Cm.data_ptr(), code, Bsz, L,
+                 ctypes.addressof(st), planes.data_ptr(), stream)
+    check_launch(err, "ssd_scan (split pre-pass)")
+    return planes
+
+
 def ssd_scan_wgmma(x, a, Bm, Cm, chunk: int, init_state=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/ssd_scan_wgmma.cu`` (bf16 B/C, P = N = 64, chunks of
-    128).  An x, B or C that TMA cannot read as it lies
-    (:func:`tma_strides`) is copied first.  Bumps ``ssd_scan_cuda.launches``
-    and its ``"wgmma"`` count."""
-    code, Bsz, L, H, P, N, Q = _check(x, a, Bm, Cm, chunk, init_state)
-    if variant(Bm.dtype, P, N, Q) != "wgmma":
-        raise ValueError(f"the wgmma kernel takes {WGMMA_BC_DTYPE} B/C at "
-                         f"P = N = {WGMMA_P} and chunk {WGMMA_CHUNK}, got "
-                         f"{Bm.dtype}, P={P}, N={N}, chunk {Q}")
+    """Launch ``csrc/ssd_scan_wgmma.cu`` (P = N = 64, a configured chunk of
+    128, any L): its bf16 instance for bf16 B/C, its split instance for
+    f32 or f16 B/C (:func:`split_bc`, then the scan on the planes).  An
+    x, B or C that TMA (or the pre-pass's 16-byte loads) cannot read as
+    it lies (:func:`tma_strides`) is copied first.  Bumps
+    ``ssd_scan_cuda.launches`` and the count of the instance's variant,
+    ``"wgmma"`` or ``"wgmma_split"``."""
+    code, Bsz, L, H, P, N, _ = _check(x, a, Bm, Cm, chunk, init_state)
+    name = variant(Bm.dtype, P, N, int(chunk))
+    if name == "simt":
+        raise ValueError(f"the wgmma kernel takes P = N = {WGMMA_P} at a "
+                         f"configured chunk of {WGMMA_CHUNK}, got "
+                         f"{Bm.dtype}, P={P}, N={N}, chunk {chunk}")
     x, Bm, Cm = (t if tma_strides(t) else t.contiguous()
                  for t in (x, Bm, Cm))
-    strides = (*tma_strides(x), *a.stride(), *tma_strides(Bm),
-               *tma_strides(Cm))
-    out = _launch(WGMMA_LIBRARY, "ssd_scan_wgmma_launch", x, a, Bm, Cm,
-                  init_state, strides, code, Bsz, L, H, P, N, Q)
-    _count("wgmma")
+    launcher, bc = "ssd_scan_wgmma_launch", (*tma_strides(Bm),
+                                            *tma_strides(Cm))
+    if name == "wgmma_split":
+        # the planes [4, B, L, N] are read as 4 B batches of rows, so their
+        # own batch stride, never a size-1 batch's stand-in
+        Bm = Cm = split_bc(Bm, Cm)
+        launcher, bc = "ssd_scan_split_launch", Bm.stride()[1:3] * 2
+    strides = (*tma_strides(x), *a.stride(), *bc)
+    out = _launch(WGMMA_LIBRARY, launcher, x, a, Bm, Cm, init_state,
+                  strides, code, Bsz, L, H, P, N, WGMMA_CHUNK)
+    _count(name)
     return out
 
 
@@ -166,15 +211,17 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     ``x [B, L, H, P]`` and ``a [B, L, H]`` float32, ``Bm, Cm [B, L, N]``
     (f32, bf16 or f16), on one CUDA device; ``init_state [B, H, P, N]``
     float32 on that device, or None for zero.  Returns
-    ``(y [B, L, H, P], final_state [B, H, P, N])``, fp32 and contiguous,
-    for chunks of ``min(chunk, L)`` steps.  Raises
+    ``(y [B, L, H, P], final_state [B, H, P, N])``, fp32 and contiguous:
+    the reference's scan at chunks of ``min(chunk, L)`` steps (``chunk``
+    is the configured chunk; the wgmma kernel runs a shorter sequence as
+    one padded chunk, which differs only in rounding).  Raises
     on anything else, and when the build or the launch fails.
     ``ssd_scan_cuda.launches`` counts every launch,
     ``ssd_scan_cuda.by_variant`` each kernel's."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
-    Q = min(int(chunk), int(x.shape[1]))
-    if variant(Bm.dtype, int(x.shape[-1]), int(Bm.shape[-1]), Q) == "wgmma":
+    if variant(Bm.dtype, int(x.shape[-1]), int(Bm.shape[-1]),
+               int(chunk)) != "simt":
         return ssd_scan_wgmma(x, a, Bm, Cm, chunk, init_state)
     return ssd_scan_simt(x, a, Bm, Cm, chunk, init_state)
 

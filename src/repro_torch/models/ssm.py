@@ -162,8 +162,9 @@ def ssm_full(
     z, xs, Bm, Cm, dt_v, a, new_conv = _mixer_inputs(cfg, p, x, conv_state)
     xh = split_last(xs, H, s.head_dim)
     xin = xh.to(torch.float32) * dt_v[..., None]
-    chunk = min(s.chunk, xs.shape[1])
-    y, final = _scan(xin, a, Bm, Cm, chunk,
+    # the configured chunk: the kernels' dispatch reads it, and each takes
+    # min(chunk, L) itself (the wgmma kernel pads a shorter sequence)
+    y, final = _scan(xin, a, Bm, Cm, s.chunk,
                      None if state is None else state["ssm"])
     out = _mixer_output(cfg, p, y, xh, z, dt_c)
     return out, {"conv": new_conv, "ssm": final.to(torch.float32)}

@@ -2,9 +2,13 @@
 against the reference's Pallas kernel (interpret mode) and its
 ``attention_ref``, on the cases of ``tests/test_kernels.py``.
 
-On the CPU the op runs the kernel's plain version; the CUDA kernel itself
-is held to that version on the card by ``chip_smoke.py``.  Tolerances are
-the reference suite's: rtol/atol 2e-5 for f32, 2e-2 for bf16.
+On the CPU the op runs the kernel's plain version; the CUDA kernels
+themselves are held to that version on the card by ``chip_smoke.py``.
+Here also: which kernel a call takes, what TMA can read as it lies, and a
+plain emulation of the f32 wgmma instance's split-precision arithmetic
+held to the reference.  Tolerances are the reference suite's: rtol/atol
+2e-5 for f32, 2e-2 for bf16; the split emulation at 1e-4 (the card's
+K2 f32 tolerance).
 """
 
 import numpy as np
@@ -24,6 +28,9 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as K2  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_cuda,
+)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref,
 )
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
@@ -103,10 +110,14 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                    torch.float16])
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_dispatch_rule(dtype, D):
-    """bf16/f16 at head dims 64 and 128 take the wgmma kernel; f32 and the
-    narrow head dims keep the simt kernel."""
-    wgmma = dtype != torch.float32 and D in (64, 128)
-    assert K2.variant(dtype, D) == ("wgmma" if wgmma else "simt")
+    """At head dims 64 and 128 bf16/f16 take the wgmma kernel's 16-bit
+    instance and f32 its split-precision instance; the narrow head dims
+    keep the simt kernel in every dtype."""
+    if D not in (64, 128):
+        want = "simt"
+    else:
+        want = "wgmma_f32" if dtype == torch.float32 else "wgmma"
+    assert K2.variant(dtype, D) == want
 
 
 def test_every_model_head_dim_in_bf16_takes_the_wgmma_kernel():
@@ -119,6 +130,18 @@ def test_every_model_head_dim_in_bf16_takes_the_wgmma_kernel():
         dims.add(cfg.head_dim)
     assert dims and all(K2.variant(torch.bfloat16, d) == "wgmma"
                         for d in dims), dims
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_every_config_in_fp32_takes_a_tensor_core_kernel_at_full_size(
+        reduced):
+    """fp32 at every full config's head dim (the fp32 check runs) takes
+    the split-precision instance; the reduced configs' narrow heads keep
+    the simt kernel."""
+    from repro_torch.configs import all_configs
+    got = {K2.variant(torch.float32, cfg.head_dim)
+           for cfg in all_configs(reduced).values()}
+    assert got == ({"simt"} if reduced else {"wgmma_f32"})
 
 
 def bshd_view(B, H, S, D, dtype=torch.bfloat16, pad=0, offset=0):
@@ -190,10 +213,11 @@ def test_wgmma_output_is_contiguous_when_q_has_no_unit_stride_along_d():
     assert strides[9:] == list(o.stride()[:3])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("fn", [K2.flash_attention_wgmma,
                                 K2.flash_attention_simt])
-def test_each_variant_refuses_cpu_tensors(fn):
-    q, k, v = (torch.from_numpy(t).to(torch.bfloat16)
+def test_each_variant_refuses_cpu_tensors(fn, dtype):
+    q, k, v = (torch.from_numpy(t).to(dtype)
                for t in inputs(1, 2, 2, 8, 8, 64, 0))
     with pytest.raises(ValueError, match="CUDA"):
         fn(q, k, v, 0.125)
@@ -204,4 +228,109 @@ def test_reset_counts():
     K2.flash_attention_cuda.by_variant["wgmma"] = 3
     K2.reset_counts()
     assert K2.flash_attention_cuda.launches == 0
-    assert K2.flash_attention_cuda.by_variant == {"wgmma": 0, "simt": 0}
+    assert K2.flash_attention_cuda.by_variant == {"wgmma": 0, "wgmma_f32": 0,
+                                                  "simt": 0}
+
+
+# ---- the f32 wgmma instance's precision contract, emulated on the CPU ----
+
+F32, BF16 = torch.float32, torch.bfloat16
+NEG, LOG2E = -1e30, 1.4426950408889634
+SPLIT_TOL = 1e-4
+
+
+def _split(v):
+    """hi = bf16(v), lo = bf16(v - hi), both returned as fp32."""
+    hi = v.to(BF16).to(F32)
+    return hi, (v - hi).to(BF16).to(F32)
+
+
+def _split_product(eq, u, v):
+    """``einsum(eq, u, v)`` of two fp32 operands as the tensor cores take
+    them under the contract: hi.hi + hi.lo + lo.hi, fp32 sums (a product
+    of two bf16 values is exact in fp32)."""
+    uh, ul = _split(u)
+    vh, vl = _split(v)
+    return (torch.einsum(eq, uh, vh) + torch.einsum(eq, uh, vl)
+            + torch.einsum(eq, ul, vh))
+
+
+def split_precision_attention(q, k, v, scale, causal=True, window=0,
+                              block=64, split_p=True):
+    """``flash_attention_wgmma.cu``'s f32 instance, emulated: key blocks of
+    ``block``, S = Q.K^T split, the online softmax in the log2 domain with
+    the -1e30 mask, P kept fp32 and split for O += P.V; ``split_p=False``
+    instead rounds P once to bf16 (what the 16-bit instance does), for the
+    contrast.  ``q [B, H, Sq, D]``, ``k, v [B, Hkv, Skv, D]`` fp32."""
+    B, H, Sq, D = q.shape
+    group = H // k.shape[1]
+    k, v = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    m = torch.full((B, H, Sq, 1), NEG)
+    l = torch.zeros(B, H, Sq, 1)
+    acc = torch.zeros(B, H, Sq, D)
+    q_pos = torch.arange(Sq)[:, None]
+    for k0 in range(0, k.shape[2], block):
+        kb, vb = k[:, :, k0:k0 + block], v[:, :, k0:k0 + block]
+        s = _split_product("bhqd,bhkd->bhqk", q, kb) * (scale * LOG2E)
+        k_pos = torch.arange(k0, k0 + kb.shape[2])[None, :]
+        if causal:
+            ok = k_pos <= q_pos
+            if window > 0:
+                ok = ok & (k_pos > q_pos - window)
+            s = torch.where(ok, s, torch.full((), NEG))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        c = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * c + p.sum(-1, keepdim=True)
+        if split_p:
+            pv = _split_product("bhqk,bhkd->bhqd", p, vb)
+        else:
+            vh, vl = _split(vb)
+            ph = p.to(BF16).to(F32)
+            pv = (torch.einsum("bhqk,bhkd->bhqd", ph, vh)
+                  + torch.einsum("bhqk,bhkd->bhqd", ph, vl))
+        acc = acc * c + pv
+        m = m_new
+    return acc / torch.clamp_min(l, 1e-30)
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal,window", [
+    (1, 2, 2, 128, 128, 64, True, 0),
+    (2, 4, 2, 128, 128, 64, True, 0),       # GQA
+    (1, 8, 1, 256, 256, 128, True, 0),      # MQA at D 128
+    (1, 4, 2, 96, 96, 64, True, 0),         # not a multiple of the block
+    (2, 4, 4, 64, 256, 128, False, 0),      # not causal, Sq != Skv
+    (1, 2, 2, 40, 150, 64, False, 0),       # ragged Sq and Skv
+    (1, 2, 2, 256, 256, 64, True, 32),      # sliding windows
+    (1, 2, 2, 256, 256, 64, True, 64),
+    (1, 2, 2, 256, 256, 128, True, 127),
+])
+def test_split_precision_contract_meets_the_reference(B, H, Hkv, Sq, Skv, D,
+                                                      causal, window):
+    """The f32 instance's hi/lo bf16 scheme, emulated in plain PyTorch,
+    agrees with the reference's Pallas kernel (interpret mode) and its
+    ``attention_ref`` within 1e-4."""
+    q, k, v = inputs(B, H, Hkv, Sq, Skv, D, seed=Sq + Skv + D + window)
+    kw = dict(scale=D ** -0.5, causal=causal, window=window)
+    got = split_precision_attention(
+        *(torch.from_numpy(t) for t in (q, k, v)), **kw).numpy()
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    for want in (ref_flash(jq, jk, jv, **kw), ref_attention(jq, jk, jv, **kw)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=SPLIT_TOL,
+                                   atol=SPLIT_TOL)
+
+
+def test_the_emulation_splits_p_and_does_not_round_it_once():
+    """The split keeps P to about 2^-17: the emulation is within 2^-14 of
+    float64 attention (relative to its largest output), while rounding P
+    once to bf16, as the 16-bit instance does, leaves about 2^-10."""
+    q, k, v = (torch.from_numpy(t)
+               for t in inputs(1, 4, 2, 256, 256, 64, seed=3))
+    exact = attention_ref(q.double(), k.double(), v.double(), 0.125)
+    scale = float(exact.abs().max())
+
+    def err(split_p):
+        got = split_precision_attention(q, k, v, 0.125, split_p=split_p)
+        return float((got.double() - exact).abs().max()) / scale
+
+    assert err(True) < 2 ** -14 and err(False) > 2 ** -12

@@ -166,22 +166,59 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 @pytest.mark.parametrize("N", [16, 32, 64])
 @pytest.mark.parametrize("Q", [16, 64, 100, 128])
 def test_dispatch_rule(dtype, P, N, Q):
-    """bf16 B/C at P = N = 64 with chunks of 128 take the wgmma kernel;
-    everything else keeps the simt kernel."""
-    wgmma = dtype == BF16 and P == N == 64 and Q == 128
-    assert K3.variant(dtype, P, N, Q) == ("wgmma" if wgmma else "simt")
+    """At P = N = 64 with a configured chunk of 128 (for any L) bf16 B/C
+    take the wgmma kernel's bf16 instance and f32/f16 B/C its split
+    instance; narrower dims and chunks keep the simt kernel."""
+    if P == N == 64 and Q == 128:
+        want = "wgmma" if dtype == BF16 else "wgmma_split"
+    else:
+        want = "simt"
+    assert K3.variant(dtype, P, N, Q) == want
 
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_every_ssm_config_in_its_compute_dtype(reduced):
-    """zamba2-1.2b at full size serves on the wgmma kernel (bf16 compute,
-    P = N = 64, chunk 128, prompts of at least 128 tokens); its reduced
-    config (f32, P = N = 16, chunk 16) on the simt kernel."""
-    got = {name: K3.variant(cfg.dtype, cfg.ssm.head_dim, cfg.ssm.d_state,
-                            min(cfg.ssm.chunk, 2048))
-           for name, cfg in all_configs(reduced).items()
+    """zamba2-1.2b at full size serves on the wgmma kernel at any prompt
+    length (bf16 compute, P = N = 64, configured chunk 128), and its fp32
+    runs on the split instance; its reduced config (f32, P = N = 16,
+    chunk 16) on the simt kernel.  The dispatch reads the configured
+    chunk, never ``min(chunk, L)``."""
+    ssm = {name: cfg for name, cfg in all_configs(reduced).items()
            if cfg.ssm is not None and "ssm" in cfg.layer_kinds()}
-    assert got == {"zamba2_1p2b": "simt" if reduced else "wgmma"}
+    got = {name: {K3.variant(dt, cfg.ssm.head_dim, cfg.ssm.d_state,
+                             cfg.ssm.chunk) for dt in (cfg.dtype, F32)}
+           for name, cfg in ssm.items()}
+    want = {"simt"} if reduced else {"wgmma", "wgmma_split"}
+    assert got == {"zamba2_1p2b": want}
+
+
+@pytest.mark.parametrize("L", [12, 200])
+def test_the_model_passes_the_configured_chunk(monkeypatch, L):
+    """``ssm_full`` hands the scan the configured chunk, also for a prompt
+    shorter than one chunk (the serving launcher's 12 tokens), so the
+    dispatch sees 128 and the wgmma kernel runs it as one padded chunk;
+    the plain version takes ``min(chunk, L)`` itself."""
+    import dataclasses
+    from repro_torch.configs import zamba2_1p2b
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.params import Init
+    cfg = dataclasses.replace(
+        zamba2_1p2b.smoke(),
+        ssm=dataclasses.replace(zamba2_1p2b.smoke().ssm, chunk=128))
+    seen = []
+    inner = ssm_mod.ssd_scan
+
+    def spy(x, a, Bm, Cm, chunk, init_state=None):
+        seen.append(chunk)
+        return inner(x, a, Bm, Cm, chunk, init_state=init_state)
+
+    monkeypatch.setattr(ssm_mod, "ssd_scan", spy)
+    gen = torch.Generator().manual_seed(0)
+    p = ssm_mod.init_ssm(cfg, Init(gen, "cpu"))
+    x = torch.randn(2, L, cfg.d_model, generator=gen)
+    out, state = ssm_mod.ssm_full(cfg, p, x)
+    assert seen == [128] and out.shape == x.shape
+    assert torch.isfinite(state["ssm"]).all()
 
 
 def xbc_slices(B, L, N, width, dtype=BF16, start=0):
@@ -223,12 +260,13 @@ def test_tma_strides(make, want):
     assert K3.tma_strides(make()) == want
 
 
+@pytest.mark.parametrize("bc_dtype", [BF16, F32, F16])
 @pytest.mark.parametrize("fn", [K3.ssd_scan_wgmma, K3.ssd_scan_simt,
                                 K3.ssd_scan_cuda])
-def test_each_variant_refuses_cpu_tensors(fn):
+def test_each_variant_refuses_cpu_tensors(fn, bc_dtype):
     x, a, Bm, Cm = (torch.from_numpy(t) for t in inputs(1, 8, 1, 64, 64, 0))
     with pytest.raises(ValueError, match="CUDA"):
-        fn(x, a, Bm.to(BF16), Cm.to(BF16), 128)
+        fn(x, a, Bm.to(bc_dtype), Cm.to(bc_dtype), 128)
 
 
 def test_reset_counts():
@@ -236,7 +274,8 @@ def test_reset_counts():
     K3.ssd_scan_cuda.by_variant["wgmma"] = 3
     K3.reset_counts()
     assert K3.ssd_scan_cuda.launches == 0
-    assert K3.ssd_scan_cuda.by_variant == {"wgmma": 0, "simt": 0}
+    assert K3.ssd_scan_cuda.by_variant == {"wgmma": 0, "wgmma_split": 0,
+                                           "simt": 0}
 
 
 # ---- the wgmma kernel's precision contract, emulated on the CPU ----------
@@ -271,12 +310,15 @@ def split_precision_scan(x, a, Bm, Cm, chunk, bc_exact, init_state=None):
     """The chunked scan with every product under the split contract
     (``ssd_scan_wgmma.cu``'s arithmetic): ``x [B, L, H, P]``, ``a [B, L,
     H]``, ``Bm, Cm [B, L, N]`` fp32 tensors; ``bc_exact`` says that B and C
-    hold bf16 values; ``init_state [B, H, P, N]`` (None: zero) enters the
+    hold bf16 values (the bf16 instance; else the split instance, which
+    splits them too); ``init_state [B, H, P, N]`` (None: zero) enters the
     first chunk's C.S^T through the same split as every later state.
+    Chunks of ``chunk`` steps, as the kernel runs them: a sequence shorter
+    than one chunk is one chunk padded with a = 1 and x = B = C = 0.
     -> ``(y, final_state)``, fp32."""
     Bsz, L, H, P = x.shape
     N = Bm.shape[-1]
-    Q = min(chunk, L)
+    Q = chunk
     pad = -L % Q
     if pad:
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
@@ -411,3 +453,68 @@ def test_chunked_ref_runs_in_float64_for_float64_inputs():
     assert float((y - yq.double()).abs().max()) < 1e-5
     y32, _ = ssd_chunked_ref(x.float(), a.float(), Bm.float(), Cm.float(), 32)
     assert y32.dtype == torch.float32
+
+
+@pytest.mark.parametrize("L", [1, 12, 64, 100, 127])
+@pytest.mark.parametrize("from_state", [False, True])
+@pytest.mark.parametrize("bc_bf16", [False, True])
+@pytest.mark.parametrize("impl", ["split", "plain"])
+def test_one_padded_chunk_meets_the_reference_at_q_equal_l(L, from_state,
+                                                          bc_bf16, impl):
+    """A sequence shorter than the configured chunk of 128: the wgmma
+    kernel's one padded chunk (``split_precision_scan`` at chunk 128, B/C
+    fp32 or bf16-valued) and the port's plain version at chunk 128 (which
+    takes ``min(chunk, L)`` itself) agree with the reference's
+    ``ssd_scan`` at Q = L (Pallas interpret mode and the sequential
+    recurrence; from a state, its ``ssd_chunked_ref``) within 1e-4, y and
+    the final state."""
+    B, H, P, N = 1, 2, 64, 64
+    arrays = inputs(B, L, H, P, N, seed=L + 3 * from_state)
+    if bc_bf16:
+        arrays = arrays[:2] + tuple(_as_bf16_values(t).view(np.float32)
+                                    for t in arrays[2:])
+    s0 = (np.random.default_rng(L).normal(size=(B, H, P, N)).astype(
+        np.float32) if from_state else None)
+    ins = [torch.from_numpy(t) for t in arrays]
+    init = None if s0 is None else torch.from_numpy(s0)
+    if impl == "split":
+        y, s = split_precision_scan(*ins, 128, bc_bf16, init)
+    else:
+        y, s = ssd_chunked_ref(*ins, 128, init)
+    assert y.shape == (B, L, H, P) and s.shape == (B, H, P, N)
+    j = [jnp.asarray(t) for t in arrays]
+    if from_state:
+        wants = [ref_chunked(*j, L, jnp.asarray(s0))]
+    else:
+        wants = [ref_scan(*j, chunk=L, impl=i) for i in ("pallas", "ref")]
+    for yr, sr in wants:
+        np.testing.assert_allclose(y.numpy(), np.asarray(yr), rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_allclose(s.numpy(), np.asarray(sr), rtol=TOL,
+                                   atol=TOL)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_split_launch_reads_the_planes_with_their_own_strides(monkeypatch,
+                                                              B):
+    """The split instance reads the pre-pass's ``[4, B, L, N]`` planes as
+    4 B batches: the launch gets their own batch stride L * N, also at
+    B = 1, where ``tma_strides`` would stand the row in for it."""
+    L, H, N = 20, 2, 64
+    x, a = torch.zeros(B, L, H, 64), torch.zeros(B, L, H)
+    Bm, Cm = torch.zeros(B, L, N), torch.zeros(B, L, N)
+    seen = {}
+
+    def fake_launch(lib, name, x, a, Bm, Cm, init_state, strides, *rest):
+        seen.update(name=name, strides=strides, B=Bm)
+        return None, None
+
+    monkeypatch.setattr(K3, "_check", lambda *args: (0, B, L, H, 64, N, L))
+    monkeypatch.setattr(K3, "split_bc", lambda Bm, Cm: torch.zeros(
+        4, B, L, N, dtype=BF16))
+    monkeypatch.setattr(K3, "_launch", fake_launch)
+    monkeypatch.setattr(K3, "_count", lambda name: None)
+    K3.ssd_scan_wgmma(x, a, Bm, Cm, 128)
+    assert seen["name"] == "ssd_scan_split_launch"
+    assert seen["strides"][6:] == (L * N, N, L * N, N)
+    assert seen["B"].shape == (4, B, L, N)
