@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k3-short    # K3 alone: build, sweeps, timings
 
 1. Prints the card's name and power limit.
 2. Builds the five CUDA libraries side by side (one nvcc each, sm_90a):
@@ -9,10 +10,12 @@
    for larger G), K2 flash attention in its three variants (at head dims
    64 and 128 ``wgmma`` for bf16/f16 and ``wgmma_f32`` for f32, the
    split-precision instance; ``simt`` for head dims 16 and 32), K3 SSD
-   scan in its three variants (at P = N = 64 and a configured chunk of
-   128, for any L, ``wgmma`` for bf16 B/C and ``wgmma_split`` for f32/f16
-   B/C; ``simt`` for the narrower dims and chunks), and logs each
-   kernel's registers and spills.
+   scan in its five variants (at P = N = 64 and a configured chunk of
+   128, ``wgmma`` for bf16 B/C and ``wgmma_split`` for f32/f16 B/C, and
+   below 65 steps the short kernel's 64-step tile, ``wgmma_short`` and
+   ``wgmma_split_short``; ``simt`` for the narrower dims and chunks),
+   logs each kernel's registers and spills, and how many CTAs of each K3
+   wgmma tile fit an SM (the short kernel must fit two).
 3. Holds K1 against its plain PyTorch version and the float64 NumPy oracle
    over bf16/f32/i32/bool payloads, G in {1, 2, 7, 64, the kernel's
    limit}, ragged and one-column shapes and NaN/Inf in masked-off rows,
@@ -20,20 +23,21 @@
    weights -1/0.5/1/0; two launches must give identical bits.
    NaN/Inf/1e20 in valid rows (gids in and out of range) must give the
    plain version's NaN/Inf positions and finite values.
-4. Holds K2 and K3 against their plain versions (and K3 against the
-   literal recurrence) on the reference kernel tests' shapes and at the
-   serving shapes; K2 in f32, bf16 and f16 at head dims 64 and 128 (and
-   qwen3-8b's GQA heads at D 128, and phase (i)'s calls in bf16 and f32:
-   mixtral's window of 4096 over 6144 tokens, qwen2-vl's 28 over 4
-   heads, whisper's encoder over 1500 frames, its cross-attention and its
-   decoder) and at head dims 16 and 32 (simt), K3 with f32, f16 and bf16
-   B/C at P = N = 64 (incl. L = 1, 12, 64, 100, shorter than a chunk) and
+4. Holds K2 and K3 against their plain versions (and K3 against the literal
+   recurrence) on the reference kernel tests' shapes and at the serving
+   shapes; K2 in f32, bf16 and f16 at head dims 64 and 128 (and qwen3-8b's
+   GQA heads at D 128, and phase (i)'s calls in bf16 and f32: mixtral's
+   window of 4096 over 6144 tokens, qwen2-vl's 28 over 4 heads, whisper's
+   encoder over 1500 frames, its cross-attention and its decoder) and at
+   head dims 16 and 32 (simt), K3 with f32, f16 and bf16 B/C at P = N = 64
+   (incl. L = 1, 12, 64 on the short kernel, with the 128-step tile called
+   directly beside it from a state, and L = 100, shorter than a chunk) and
    at the narrower dims and chunks (simt), from a zero and from a random
    initial state, checking which variant ran.  Then one Mamba2 layer of
-   zamba2-1.2b at full width runs ``ssm_full`` over the serving prompt
-   and over its two halves, the second from the first's returned state,
-   in bf16 (wgmma) and fp32 (wgmma_split): the chained scans must equal
-   one scan over the same steps.
+   zamba2-1.2b at full width runs ``ssm_full`` over the serving prompt and
+   over its two halves, the second from the first's returned state, in bf16
+   (wgmma) and fp32 (wgmma_split): the chained scans must equal one scan
+   over the same steps.
 5. Drives the population path at full size: the paper's 4,490-subject
    population (Table 3), one float32 91x109x91 MNI152 2 mm volume per
    subject, on ``GridSession(devices=["cuda:0"] * 4)`` with the paper's two
@@ -55,19 +59,20 @@
    queries/s and p50/p99.  Then times K1 at three of its blocks: the
    grouped query's largest ``img:data`` block, the Mean run's block and
    the ``idx:age`` block.
-6. Serves zamba2-1.2b at full width and depth (38 layers, random weights
-   from a seed) through ``ServeEngine(device="cuda")``: 8 requests, 2048
-   prompt tokens, 64 new tokens, greedy; counts K2/K3 launches per prefill
-   by wrapper, by variant and by the profiler's kernel names, and holds
-   the prefill and every decode step's logits against the same model run
-   with the kernels' plain versions on the same token stream (bf16
-   activations: the wgmma variants of K2 and K3; fp32: wgmma_f32 and
-   wgmma_split, with no simt launch).  A 12-token prefill (the serving
-   launcher's default prompt, shorter than one chunk) through the same
-   engine in bf16 takes K3's wgmma variant 32 times, and its logits and
-   those of an fp32 12-token prefill (wgmma_split) are held to the plain
-   kernels'.  zamba2-1.2b's reduced config (head dims 16, chunk 16, fp32)
-   serves through its own engine: the path of the simt kernels.
+6. Serves zamba2-1.2b at full width and depth (38 layers, random weights from
+   a seed) through ``ServeEngine(device="cuda")``: 8 requests, 2048 prompt
+   tokens, 64 new tokens, greedy; counts K2/K3 launches per prefill by
+   wrapper, by variant and by the profiler's kernel names, and holds the
+   prefill and every decode step's logits against the same model run with
+   the kernels' plain versions on the same token stream (bf16 activations:
+   the wgmma variants of K2 and K3; fp32: wgmma_f32 and wgmma_split, with
+   no simt launch).  A 12-token prefill (the serving launcher's default
+   prompt, shorter than one chunk) through the same engine in bf16 takes
+   K3's short kernel (``wgmma_short``) 32 times and no other K3 variant,
+   and its logits and those of an fp32 12-token prefill
+   (``wgmma_split_short``, 32) are held to the plain kernels'.
+   zamba2-1.2b's reduced config (head dims 16, chunk 16, fp32) serves
+   through its own engine: the path of the simt kernels.
    (i) Then serves the other families at full width, each freed from the
    card before the next: mixtral-8x7b (8 of 32 layers, bf16 parameters;
    4 x 6144 prompt tokens, past its 4096-token window, 32 new),
@@ -118,10 +123,15 @@
 7. Times K2's wgmma and simt kernels, SDPA and the plain version in
    turns at the serving call (and in fp32 the wgmma_f32 instance, the
    simt kernel, SDPA and the plain version) and at qwen3-8b's D=128 GQA
-   shape, and K3's instances, the simt kernel and the plain version in
-   turns at its serving call (bf16 B/C; f32 B/C for wgmma_split) and at
-   L = 12 and 64, with each one's distance to a float64 run of the plain
-   version.
+   shape (and there in fp32 wgmma_f32, SDPA and the plain version), and
+   K3's kernels and the plain version in turns at its serving call (bf16
+   B/C; f32 B/C for wgmma_split) and below one chunk, at L = 1, 12 and 64
+   with B 8 and B 4 and bf16 and f32 B/C (the short kernel, the 128-step
+   tile called directly, the simt kernel), each with its loop time, its
+   device time from the profiler and its host time a call (the wrapper,
+   and the C launchers inside it), and its distance to a float64 run of
+   the plain version; K3 is timed right after the sweeps, in a process of
+   its own (``--k3-measure``), whose profiler keeps every kernel record.
 8. Prints one JSON line of kernel measurements, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -132,6 +142,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -522,8 +533,9 @@ def k2_sweep(gen):
 #: P = N = 64 (wgmma_split); at P = N = 64 and a configured chunk of 64
 #: (simt); then each B/C dtype at P = N = 64 and chunk 128 (bf16: wgmma,
 #: f32/f16: wgmma_split): one chunk, a ragged L = 300, the long-decay case,
-#: sequences shorter than one chunk (L = 1, 12, 64, 100: one padded chunk)
-#: and the serving shape
+#: sequences shorter than one chunk (L = 1, 12, 64: the short kernel's one
+#: chunk padded to 64, wgmma_short / wgmma_split_short; L = 100: one chunk
+#: padded to 128) and the serving shape
 K3_CASES = [
     (1, 64, 1, 16, 16, 16, F32, 0.7),
     (2, 128, 2, 32, 16, 64, F32, 0.7),
@@ -568,7 +580,7 @@ def k3_sweep(gen):
     for B, L, H, P, N, chunk, bdt, lo in K3_CASES:
         x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, bdt, lo)
         where = (B, L, H, P, N, chunk, bdt, lo)
-        ran = K3.variant(bdt, P, N, chunk)
+        ran = K3.variant(bdt, P, N, chunk, L)
         before = K3.ssd_scan_cuda.by_variant[ran]
         y, s = K3.ssd_scan_cuda(x, a, Bm, Cm, chunk)
         check(K3.ssd_scan_cuda.by_variant[ran] == before + 1,
@@ -605,8 +617,9 @@ def k3_sweep(gen):
 #: K3 from a random initial state: f32 B/C at the narrower dims and at a
 #: chunk of 64 (simt); each B/C dtype at P = N = 64 and chunk 128 (both
 #: kernels: the wgmma instance as serving picks it, the simt kernel
-#: called directly), incl. a ragged L, L = 1, 12, 64, 100 (one padded
-#: chunk) and the serving shape
+#: called directly; below 65 steps also the 128-step tile called
+#: directly), incl. a ragged L, L = 1, 12, 64 (the short kernel, bf16 and
+#: f32 B/C), 100 (one padded chunk) and the serving shape
 K3_STATE_CASES = [
     (1, 64, 1, 16, 16, 16, F32),
     (1, 100, 2, 32, 32, 32, F32),
@@ -617,7 +630,8 @@ K3_STATE_CASES = [
         (2, 300, 3, 64, 64, 128, dt),
         (8, 2048, 64, 64, 64, 128, dt),
     )
-] + [(2, L, 3, 64, 64, 128, BF16) for L in (1, 12, 64, 100)]
+] + [(2, L, 3, 64, 64, 128, dt) for dt in (BF16, F32)
+      for L in (1, 12, 64, 100)]
 
 
 def k3_state_sweep(gen):
@@ -631,9 +645,12 @@ def k3_state_sweep(gen):
         yp, sp = ssd_chunked_ref(x, a, Bm, Cm, min(chunk, L), s0)
         scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
         runs = [("simt", K3.ssd_scan_simt)]
-        ran = K3.variant(bdt, P, N, chunk)
+        ran = K3.variant(bdt, P, N, chunk, L)
         if ran != "simt":
             runs.append((ran, K3.ssd_scan_wgmma))
+        if ran.endswith("_short"):         # the 128-step tile, directly
+            runs.append((ran.removesuffix("_short"),
+                         functools.partial(K3.ssd_scan_wgmma, tile=128)))
         for ran, fn in runs:
             y, s = fn(x, a, Bm, Cm, chunk, init_state=s0)
             torch.cuda.synchronize()
@@ -1598,6 +1615,8 @@ def breakdown(wall, prof):
             cat = "K2 simt"
         elif "ssd_wgmma_kernel" in name:
             cat = "K3"
+        elif "ssd_short_kernel" in name:
+            cat = "K3 short"
         elif "split_bc_kernel" in name:
             cat = "K3 pre-pass"
         elif "ssd_scan_kernel" in name:
@@ -1766,10 +1785,10 @@ def kernel_vs_plain_s(fn):
 def short_prefill(engine, model32, params32, prompts, want):
     """The serving launcher's default prompt of SHORT_PROMPT tokens,
     shorter than one SSD chunk: generated through the engine in bf16 (K3
-    must run its wgmma variant once a layer, as one padded chunk, and no
-    simt launch), then its prefill logits on the kernels in bf16 and fp32
-    (wgmma_split) against ``plain_kernels()``, with the full prompt's
-    tolerances."""
+    must run its short kernel once a layer, ``wgmma_short``: one chunk
+    padded to 64 steps, and no other K3 variant), then its prefill logits
+    on the kernels in bf16 and fp32 (``wgmma_split_short``) against
+    ``plain_kernels()``, with the full prompt's tolerances."""
     p = prompts[:, :SHORT_PROMPT]
     reset_kernel_counts()
     res = engine.generate(p, 4)
@@ -1777,14 +1796,14 @@ def short_prefill(engine, model32, params32, prompts, want):
            "k3": dict(K3.ssd_scan_cuda.by_variant),
            "prefill_s": res.prefill_s}
     check(out["k2"] == only(K2, wgmma=want["K2"])
-          and out["k3"] == only(K3, wgmma=want["K3"]),
+          and out["k3"] == only(K3, wgmma_short=want["K3"]),
           f"{SHORT_PROMPT}-token bf16 prefill: K2 {out['k2']}, K3 "
           f"{out['k3']}")
     pr = torch.as_tensor(p, dtype=torch.int64, device=DEV)
     reset_kernel_counts()
     kern32 = model32.prefill(params32, pr)[0].float()
     out["k3_f32"] = dict(K3.ssd_scan_cuda.by_variant)
-    check(out["k3_f32"] == only(K3, wgmma_split=want["K3"]),
+    check(out["k3_f32"] == only(K3, wgmma_split_short=want["K3"]),
           f"{SHORT_PROMPT}-token fp32 prefill: K3 {out['k3_f32']}")
     kern = engine.model.prefill(engine.params, pr)[0].float()
     with plain_kernels():
@@ -2818,16 +2837,21 @@ def report_distributed(k1, k2, k3, k4, secs, dry_s, card):
 #: prompt; (B, H, Hkv, S, D), bf16, causal, as [B, S, H, D] views
 K2_TIMED = {"zamba2": (SERVE_B, SERVE_HEADS, SERVE_HEADS, SERVE_PROMPT, 64),
             "qwen3_d128": (SERVE_B, 32, 8, SERVE_PROMPT, 128)}
+#: the kernels each also times in fp32: at D 128 the split instance's one
+#: staging tile (the simt kernel in fp32 is timed at zamba2's call)
+K2_TIMED_F32 = {"zamba2": ("wgmma_f32", "simt_f32"),
+                "qwen3_d128": ("wgmma_f32",)}
 
 
-def measure_k2(gen, B, H, Hkv, S, D, f32=False):
+def measure_k2(gen, B, H, Hkv, S, D, f32=()):
     """K2's wgmma and simt kernels, SDPA and the plain version on one
     bf16 causal call, timed in turns (wgmma, simt, SDPA, plain, then
-    backwards); each time is the mean of its two turns.  With ``f32``,
-    also the wgmma_f32 instance, the simt kernel, SDPA and the plain
-    version on the same call in fp32, the dtype of the fp32 checks
-    (``"wgmma_f32"``, ``"simt_f32"``, ...); wgmma_f32's bound is the
-    split contract's: three bf16 products for each."""
+    backwards); each time is the mean of its two turns.  ``f32`` names
+    the kernels also timed on the same call in fp32, the dtype of the
+    fp32 checks (``"wgmma_f32"``, the split-precision instance, and
+    ``"simt_f32"``), beside SDPA and the plain version in fp32;
+    wgmma_f32's bound is the split contract's: three bf16 products for
+    each."""
     q = torch.randn(B, S, H, D, generator=gen, device=DEV).to(BF16)
     k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=DEV).to(BF16)
             for _ in range(2))
@@ -2860,9 +2884,10 @@ def measure_k2(gen, B, H, Hkv, S, D, f32=False):
         want64 = attention_ref(q32.double(), k32.double(), v32.double(),
                                scale)
         f64 = {"plain": float((want32.double() - want64).abs().max())}
-        for name, fn in (("wgmma_f32", K2.flash_attention_wgmma),
-                         ("simt_f32", K2.flash_attention_simt)):
-            got32 = fn(q32, k32, v32, scale)
+        f32_fns = {"wgmma_f32": K2.flash_attention_wgmma,
+                   "simt_f32": K2.flash_attention_simt}
+        for name in f32:
+            got32 = f32_fns[name](q32, k32, v32, scale)
             torch.cuda.synchronize()
             errs[name] = float((got32 - want32).abs().max())
             f64[name] = float((got32.double() - want64).abs().max())
@@ -2872,10 +2897,9 @@ def measure_k2(gen, B, H, Hkv, S, D, f32=False):
                   f"{errs[name]:.3g}")
         del got32, want32, want64
         runs.update({
-            "wgmma_f32": (lambda: K2.flash_attention_wgmma(q32, k32, v32,
-                                                           scale), 10),
-            "simt_f32": (lambda: K2.flash_attention_simt(q32, k32, v32,
-                                                         scale), 5),
+            name: (lambda fn=f32_fns[name]: fn(q32, k32, v32, scale),
+                   10 if name == "wgmma_f32" else 5) for name in f32})
+        runs.update({
             "sdpa_f32": (lambda: sdpa(q32, k32, v32, is_causal=True,
                                       scale=scale, enable_gqa=Hkv != H), 5),
             "plain_f32": (lambda: attention_ref(q32, k32, v32, scale), 3),
@@ -2894,13 +2918,14 @@ def measure_k2(gen, B, H, Hkv, S, D, f32=False):
     entry = {name: bound_entry(errs[name], ms[name], ms["plain"],
                                ms["sdpa"], flops, nbytes)
              for name in ("wgmma", "simt")}
+    for name in f32:
+        entry[name] = (
+            bound_entry(errs[name], ms[name], ms["plain_f32"],
+                        ms["sdpa_f32"], 3 * flops, 2 * nbytes)
+            if name == "wgmma_f32" else
+            bound_entry(errs[name], ms[name], ms["plain_f32"],
+                        ms["sdpa_f32"], flops, 2 * nbytes, FP32_FLOPS))
     if f32:
-        entry["wgmma_f32"] = bound_entry(errs["wgmma_f32"], ms["wgmma_f32"],
-                                         ms["plain_f32"], ms["sdpa_f32"],
-                                         3 * flops, 2 * nbytes)
-        entry["simt_f32"] = bound_entry(errs["simt_f32"], ms["simt_f32"],
-                                        ms["plain_f32"], ms["sdpa_f32"],
-                                        flops, 2 * nbytes, FP32_FLOPS)
         entry["f64_err"] = f64
     entry["turns"] = turns
     return entry
@@ -2918,26 +2943,153 @@ def k3_work(B, L, H, P, N, Q, bc_bytes):
     return flops, nbytes
 
 
-#: K3's timed calls: (tag, L, B/C dtype, the kernels timed beside the
-#: plain version); all at B 8, H 64, P = N = 64, chunk 128
-K3_TIMED = (("serve", SERVE_PROMPT, BF16, ("wgmma", "simt")),
-            ("serve_f32bc", SERVE_PROMPT, F32, ("wgmma_split",)),
-            ("L12", SHORT_PROMPT, BF16, ("wgmma", "simt")),
-            ("L64", 64, BF16, ("wgmma", "simt")))
+#: K3's timed calls at H 64, P = N = 64 and a configured chunk of 128:
+#: (tag, L, B, B/C dtype, the kernels timed beside the plain version).
+#: The serving call; then below one chunk, L 1, 12 (the serving
+#: launcher's prompt) and 64 at B 8 and at B 4 (the launcher's batch),
+#: with bf16 and with f32 B/C: the short kernel, the 128-step tile called
+#: directly, and the simt kernel
+K3_TIMED = (("serve", SERVE_PROMPT, SERVE_B, BF16, ("wgmma", "simt")),
+            ("serve_f32bc", SERVE_PROMPT, SERVE_B, F32, ("wgmma_split",)),
+            ) + tuple(
+    (f"L{L}_B{B}_{'bf16' if dt == BF16 else 'f32bc'}", L, B, dt,
+     ("wgmma_short", "wgmma", "simt") if dt == BF16
+     else ("wgmma_split_short", "wgmma_split", "simt"))
+    for L in (1, SHORT_PROMPT, 64) for B in (SERVE_B, 4) for dt in (BF16, F32))
 
 
-def measure_k3(gen):
-    """K3 at the serving call (x [8, 2048, 64, 64] f32, a [8, 2048, 64],
-    chunk 128, B/C [8, 2048, 64] column slices) with bf16 B/C (the wgmma
-    instance and the simt kernel) and with f32 B/C (the split instance),
-    and at L = 12 and 64 with bf16 B/C (one padded chunk a stream).  Each
-    call's kernels and its plain version are timed in turns (forwards,
-    then backwards); each time is the mean of its two turns.  Errors:
-    each kernel against the plain version, and each kernel and the fp32
-    plain version against the plain version run in float64 on the card.
-    -> {tag: {kernel: measurements, "plain_f64_err": ...}}; the split
+def k3_kernel(name):
+    """The K3 kernel a name of ``K3_TIMED`` calls, the wgmma tile fixed:
+    ``fn(x, a, Bm, Cm, chunk)``."""
+    if name == "simt":
+        return K3.ssd_scan_simt
+    return functools.partial(K3.ssd_scan_wgmma,
+                             tile=64 if name.endswith("_short") else 128)
+
+
+def k3_launchers(mod=K3):
+    """{loaded library: the names of its C launchers} of the K3 kernels
+    of ``mod`` (this tree's ``kernel`` module, or another tree's)."""
+    return {mod.WGMMA_LIBRARY.get(): ("ssd_scan_wgmma_launch",
+                                      "ssd_scan_split_launch",
+                                      "ssd_scan_split_bc_launch"),
+            mod.LIBRARY.get(): ("ssd_scan_launch",)}
+
+
+@contextlib.contextmanager
+def timed_launchers(ranges, mod=K3):
+    """The C launchers of ``mod``'s K3 kernels wrapped so that each call's
+    host seconds add up in the yielded one-element list, and with
+    ``ranges`` also run inside a profiler range "k3 ctypes"; the bound
+    functions are put back on exit."""
+    spent = [0.0]
+    real = [(lib, name, getattr(lib, name))
+            for lib, names in k3_launchers(mod).items() for name in names]
+
+    def wrap(fn):
+        def call(*args):
+            with (torch.profiler.record_function("k3 ctypes") if ranges
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    spent[0] += time.perf_counter() - t0
+        return call
+
+    for lib, name, fn in real:
+        setattr(lib, name, wrap(fn))
+    try:
+        yield spent
+    finally:
+        for lib, name, fn in real:
+            setattr(lib, name, fn)
+
+
+def k3_call_times(fn, per_call=1, reps=200, prof_reps=20, mod=K3):
+    """One K3 call ``fn()`` split into the card's time and the host's:
+    ``loop_ms`` (CUDA events over a loop of 50 launches), ``device_ms``
+    (the profiler's kernel time a call of its ``per_call`` kernels, of
+    which ``prepass_device_ms`` the split pre-pass's: the mean of each
+    kernel's records, since a trace can keep only some of them; None when
+    a kernel has none; ``kernel_records`` of ``kernel_launches`` were
+    kept), ``host_ms`` and ``ctypes_ms``
+    (perf_counter over ``reps`` calls without synchronising: the whole
+    wrapper, and the C launchers inside it: ``mod``'s), and the profiler's
+    CPU time a call of the wrapper (``prof_call_ms``, range "k3 call") and
+    of its C launchers (``prof_ctypes_ms``), which the profiler's own cost
+    inflates."""
+    out = {"loop_ms": event_ms(fn, 50)}
+    with timed_launchers(False, mod) as spent:
+        fn()
+        torch.cuda.synchronize()
+        spent[0] = 0.0
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out["host_ms"] = (time.perf_counter() - t0) / reps * 1e3
+        out["ctypes_ms"] = spent[0] / reps * 1e3
+        torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with timed_launchers(True, mod):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(prof_reps):
+                with torch.profiler.record_function("k3 call"):
+                    fn()
+            torch.cuda.synchronize()
+    kernels, call, ctypes_us = {}, 0.0, 0.0
+    for evt in prof.events():
+        us = evt.time_range.elapsed_us()
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if not (getattr(evt, "is_user_annotation", False)
+                    or evt.name in ("k3 call", "k3 ctypes")):
+                kernels.setdefault(evt.name, []).append(us)
+        elif evt.name == "k3 call":
+            call += us
+        elif evt.name == "k3 ctypes":
+            ctypes_us += us
+    mean_ms = {name: sum(v) / len(v) / 1e3 for name, v in kernels.items()}
+    whole = len(mean_ms) == per_call
+    out.update(device_ms=sum(mean_ms.values()) if whole else None,
+               prepass_device_ms=sum(ms for name, ms in mean_ms.items()
+                                     if "split_bc_kernel" in name)
+               if whole else None,
+               kernel_records=sum(len(v) for v in kernels.values()),
+               kernel_launches=prof_reps * per_call,
+               prof_call_ms=call / 1e3 / prof_reps,
+               prof_ctypes_ms=ctypes_us / 1e3 / prof_reps)
+    return out
+
+
+def mean_turns(turns):
+    """:func:`k3_call_times`'s results of several turns: each time the
+    mean over the turns (the device times over the turns that have one,
+    else None), the kernel records and launches summed."""
+    out = {}
+    for key in turns[0]:
+        vals = [t[key] for t in turns if t[key] is not None]
+        if key in ("kernel_records", "kernel_launches"):
+            out[key] = sum(vals)
+        else:
+            out[key] = sum(vals) / len(vals) if vals else None
+    return out
+
+
+def measure_k3(gen, timed=K3_TIMED):
+    """K3 at each call of ``timed`` (x [B, L, 64, 64] f32, a [B, L, 64],
+    chunk 128, B/C [B, L, 64] column slices): each kernel checked against
+    the plain version (K3_TOL x scale), then timed by
+    :func:`k3_call_times` in turns (forwards, then backwards; each number
+    the mean of its two turns), the plain version's loop time before and
+    after.  Errors: each kernel against the plain version, and each
+    kernel and the fp32 plain version against the plain version run in
+    float64 on the card.  Comparison launches: the counts are put back.
+    -> {tag: {kernel: measurements, "plain_f64_err": ...}}; a split
     instance's bound is the contract's (three bf16 products for each)."""
-    B, H, P, N, Q = SERVE_B, SERVE_SSM_HEADS, 64, 64, 128
+    H, P, N, Q = SERVE_SSM_HEADS, 64, 64, 128
     counts = (K3.ssd_scan_cuda.launches, dict(K3.ssd_scan_cuda.by_variant))
 
     def dist(y, s, yw, sw):
@@ -2945,16 +3097,15 @@ def measure_k3(gen):
                    float((s.double() - sw.double()).abs().max()))
 
     out = {}
-    for tag, L, bdt, names in K3_TIMED:
+    for tag, L, B, bdt, names in timed:
         x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, bdt, 0.7)
-        want = "wgmma" if bdt == BF16 else "wgmma_split"
-        check(K3.variant(Bm.dtype, P, N, Q) == want, f"K3 {tag} variant")
+        check(K3.variant(Bm.dtype, P, N, Q, L) == names[0],
+              f"K3 {tag} variant")
         yp, sp = ssd_chunked_ref(x, a, Bm, Cm, min(Q, L))
         y64, s64 = ssd_chunked_ref(x.double(), a.double(), Bm.double(),
                                    Cm.double(), min(Q, L))
         scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
-        fns = {"wgmma": K3.ssd_scan_wgmma, "wgmma_split": K3.ssd_scan_wgmma,
-               "simt": K3.ssd_scan_simt}
+        fns = {name: k3_kernel(name) for name in names}
         errs, f64 = {}, {"plain": dist(yp, sp, y64, s64)}
         for name in names:
             y, s = fns[name](x, a, Bm, Cm, Q)
@@ -2965,31 +3116,134 @@ def measure_k3(gen):
                   f"K3 {name} at {tag}: max err {errs[name]:.3g} (scale "
                   f"{scale:.3g})")
         del y, s, yp, sp, y64, s64
-        reps = 20 if L > Q else 50
-        runs = {name: (lambda fn=fns[name]: fn(x, a, Bm, Cm, Q),
-                       10 if name == "simt" else reps) for name in names}
-        runs["plain"] = (lambda: ssd_chunked_ref(x, a, Bm, Cm, min(Q, L)),
-                         3 if L > Q else 10)
-        turns = {name: [] for name in runs}
-        for order in (list(runs), list(runs)[::-1]):
+
+        def plain():
+            return ssd_chunked_ref(x, a, Bm, Cm, min(Q, L))
+
+        plain_turns = [event_ms(plain, 3 if L > Q else 10)]
+        turns = {name: [] for name in names}
+        for order in (names, names[::-1]):
             for name in order:
-                fn, n = runs[name]
-                turns[name].append(event_ms(fn, n))
-        ms = {name: sum(t) / len(t) for name, t in turns.items()}
+                turns[name].append(k3_call_times(
+                    lambda fn=fns[name]: fn(x, a, Bm, Cm, Q),
+                    per_call=2 if "split" in name else 1))
+        plain_turns.append(event_ms(plain, 3 if L > Q else 10))
+        plain_ms = sum(plain_turns) / 2
         flops, nbytes = k3_work(B, L, H, P, N, min(Q, L), Bm.element_size())
-        entry = {name: dict(bound_entry(
-            errs[name], ms[name], ms["plain"], None,
-            3 * flops if name == "wgmma_split" else flops, nbytes),
-            f64_err=f64[name]) for name in names}
-        entry["plain_f64_err"] = f64["plain"]
-        entry["turns"] = turns
-        if "wgmma_split" in names:     # its pre-pass alone, in a loop
-            entry["prepass_ms"] = event_ms(lambda: K3.split_bc(Bm, Cm), 50)
+        entry = {"plain_f64_err": f64["plain"], "plain_turns": plain_turns,
+                 "scale": scale}
+        for name in names:
+            m = mean_turns(turns[name])
+            entry[name] = dict(
+                bound_entry(errs[name], m["loop_ms"], plain_ms, None,
+                            3 * flops if "split" in name else flops, nbytes),
+                f64_err=f64[name],
+                loop_turns=[t["loop_ms"] for t in turns[name]], **m)
         out[tag] = entry
         del x, a, Bm, Cm
-    # comparison launches
     K3.ssd_scan_cuda.launches, K3.ssd_scan_cuda.by_variant = counts
     return out
+
+
+def report_k3(k3m, timed, card):
+    for tag, L, B, bdt, names in timed:
+        k3 = k3m[tag]
+        plain_turns = ", ".join(f"{t:.4f}" for t in k3["plain_turns"])
+        for var in names:
+            km = k3[var]
+            log(f"K3 {var} at x [{B},{L},64,64] f32, B/C "
+                f"{str(bdt).replace('torch.', '')}, chunk 128 on {card}: "
+                f"{km['ms']:.4f} ms in a loop (turns "
+                + ", ".join(f"{t:.4f}" for t in km["loop_turns"])
+                + ("), device not measured" if km["device_ms"] is None
+                   else f"), device {km['device_ms']:.4f} ms"
+                   + (f" (pre-pass {km['prepass_device_ms']:.4f})"
+                      if "split" in var else ""))
+                + f" ({km['kernel_records']} of {km['kernel_launches']} "
+                f"kernel records)"
+                + f", host {km['host_ms']:.4f} ms a call, of which the C "
+                f"launchers {km['ctypes_ms']:.4f} (profiled CPU: wrapper "
+                f"{km['prof_call_ms']:.4f}, C launchers "
+                f"{km['prof_ctypes_ms']:.4f}); bound {km['bound_ms']:.5f} "
+                f"ms ({km['bound_by']}; {km['flops'] / 1e9:.3f} GFLOP, "
+                f"{km['bytes'] / 1e6:.2f} MB), plain {km['plain_ms']:.4f} "
+                f"ms (turns {plain_turns}), library none (no single PyTorch"
+                f" call computes it), max |kernel-plain| "
+                f"{km['max_abs_err']:.3g} (scale {k3['scale']:.3g}), max "
+                f"|kernel-float64| {km['f64_err']:.3g} (fp32 plain "
+                f"version: {k3['plain_f64_err']:.3g})")
+
+
+def report_k3_occupancy():
+    """CTAs an SM of each wgmma tile (bf16 and split, from zero); the
+    short kernel must fit two."""
+    occ = {(tile, split): K3.ctas_per_sm(tile, split)
+           for tile in (128, 64) for split in (False, True)}
+    log("K3 wgmma CTAs an SM: " + ", ".join(
+        f"tile {tile}{' split' if split else ''} {n}"
+        for (tile, split), n in occ.items()))
+    check(occ[(64, False)] >= 2 and occ[(64, True)] >= 2,
+          f"the short kernel does not fit two CTAs an SM: {occ}")
+
+
+def measure_k3_apart():
+    """:func:`measure_k3` over ``K3_TIMED`` in a process of its own
+    (``--k3-measure``), whose profiler is fresh: in a process that has
+    traced many runs, later traces keep only some kernel records, or
+    none (the K1 device times went wrong when K3's 76 traces ran in this
+    process).  The libraries are built already; the child loads them."""
+    path = REPO / "build" / "k3_timing.json"
+    path.unlink(missing_ok=True)
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--k3-measure",
+         str(path)], capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0,
+          f"the K3 timing process failed ({proc.returncode}): "
+          f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return json.loads(path.read_text())
+
+
+def k3_measure_main(path) -> int:
+    """``python3 chip_smoke.py --k3-measure PATH``: :func:`measure_k3`
+    over ``K3_TIMED``, written to PATH as JSON."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run",
+              file=sys.stderr)
+        return 2
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    Path(path).write_text(json.dumps(measure_k3(gen)))
+    return 0
+
+
+def k3_short_main() -> int:
+    """``python3 chip_smoke.py --k3-short``: K3 alone, built from this
+    tree's sources: its registers and CTAs an SM, the K3 sweeps, and the
+    calls of ``K3_TIMED`` below one chunk."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run",
+              file=sys.stderr)
+        return 2
+    card = card_line()
+    log(f"card {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    for lib in (K3.WGMMA_LIBRARY, K3.LIBRARY):
+        lib.start()
+    for lib in (K3.WGMMA_LIBRARY, K3.LIBRARY):
+        lib.get()
+        log(f"built {lib.source.name} in {lib.build_seconds:.1f} s")
+        report_ptxas(lib)
+    report_k3_occupancy()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n3, worst3 = k3_sweep(gen)
+    state3 = k3_state_sweep(gen)
+    log(f"K3 sweep: {n3} cases, " + ", ".join(
+        f"{ran}: {n} cases, max |kernel-plain| {w:.3g}"
+        for ran, (n, w) in sorted(worst3.items())) + "; from a state: "
+        + ", ".join(f"{ran}: {n} cases, max |kernel-plain| / scale {w:.3g}"
+                    for ran, (n, w) in sorted(state3.items())))
+    short = [t for t in K3_TIMED if t[1] <= 64]
+    report_k3(measure_k3(gen, short), short, card)
+    print(card, flush=True)
+    return 0
 
 
 def bound_entry(err, ms, plain_ms, library_ms, flops, nbytes,
@@ -3096,6 +3350,29 @@ def report_k1_ptxas(text):
         + (f": {spills}" if spills else ""))
 
 
+def report_ptxas(lib):
+    """Log a library's ptxas registers and spills; a tensor-core library
+    (``*_wgmma.cu``) must keep every accumulator in registers (a library
+    found already built has no compiler report to read)."""
+    if lib is K.LIBRARY:       # 118 kernels: the f32 ones and spills
+        report_k1_ptxas(lib.build_log)
+        return
+    for line in lib.build_log.splitlines():
+        if any(w in line for w in ("registers", "spill", "Performance Loss")):
+            log("  ptxas:", line.strip())
+    if not lib.source.name.endswith("_wgmma.cu"):
+        return
+    if not lib.build_log:
+        log(f"  {lib.source.name}: reused build, no ptxas report")
+        return
+    entries = ptxas_entries(lib.build_log)
+    log(f"  {lib.source.name} kernels (registers, spill bytes): "
+        + "; ".join(f"{n} {r} {st}/{ld}" for n, r, st, ld in entries))
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", lib.build_log)
+    check(spills and not any(int(n) for n in spills),
+          f"{lib.source.name} spills registers: {spills}")
+
+
 def build_kernels():
     """Start every kernel's nvcc at once, then wait on each."""
     t0 = time.perf_counter()
@@ -3107,28 +3384,10 @@ def build_kernels():
         lib.get()
         log(f"built {lib.source.name} in {lib.build_seconds:.1f} s "
             f"({lib.path.name})")
-        if lib is K.LIBRARY:       # 118 kernels: the f32 ones and spills
-            report_k1_ptxas(lib.build_log)
-            continue
-        for line in lib.build_log.splitlines():
-            if any(w in line for w in ("registers", "spill",
-                                       "Performance Loss")):
-                log("  ptxas:", line.strip())
-    # the tensor-core kernels must keep every accumulator in registers
-    # (a library found already built has no compiler report to read)
-    for lib in (K2.WGMMA_LIBRARY, K3.WGMMA_LIBRARY):
-        if not lib.build_log:
-            log(f"  {lib.source.name}: reused build, no ptxas report")
-            continue
-        entries = ptxas_entries(lib.build_log)
-        log(f"  {lib.source.name} kernels (registers, spill bytes): "
-            + "; ".join(f"{n} {r} {st}/{ld}" for n, r, st, ld in entries))
-        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)",
-                            lib.build_log)
-        check(spills and not any(int(n) for n in spills),
-              f"{lib.source.name} spills registers: {spills}")
+        report_ptxas(lib)
     log(f"all kernels built in {time.perf_counter() - t0:.1f} s, side by "
         f"side")
+    report_k3_occupancy()
 
 
 def kernel_line(name, source, replaces, launches, m):
@@ -3188,6 +3447,10 @@ def main() -> int:
             f"{c['vs_whole']:.3g}, conv state {c['conv_gap']:.3g}"
             for dt, c in cont.items())
         + f"; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k3m = measure_k3_apart()
+    log(f"K3 timing in a process of its own {time.perf_counter() - t0:.1f} "
+        f"s (reported below)")
 
     table, t_draw, t_upload = build_population(SCALE)
     log(f"population: {table.num_rows} subjects x {VOLUME} float32 = "
@@ -3269,9 +3532,8 @@ def main() -> int:
     step_j = float(np.mean([r["s"] for r in tr["steps"][1:]]))
     report_distributed(*distributed_phase(step_j), card=card)
 
-    k2m = {tag: measure_k2(gen, *shape, f32=tag == "zamba2")
+    k2m = {tag: measure_k2(gen, *shape, f32=K2_TIMED_F32[tag])
            for tag, shape in K2_TIMED.items()}
-    k3m = measure_k3(gen)
     for tag, (B, H, Hkv, S, D) in K2_TIMED.items():
         sdpa_turns = ", ".join(f"{t:.4f}" for t in k2m[tag]["turns"]["sdpa"])
         for var in ("wgmma", "simt"):
@@ -3285,42 +3547,26 @@ def main() -> int:
                 f"MB), SDPA {km['library_ms']:.4f} ms (turns {sdpa_turns}),"
                 f" plain {km['plain_ms']:.3f} ms, max |kernel-plain| "
                 f"{km['max_abs_err']:.3g}")
-    B, H, Hkv, S, D = K2_TIMED["zamba2"]
-    turns = k2m["zamba2"]["turns"]
-    f64 = k2m["zamba2"]["f64_err"]
-    for var in ("wgmma_f32", "simt_f32"):
-        km = k2m["zamba2"][var]
-        log(f"K2 {var} at zamba2 q [{B},{H},{S},{D}], k/v [{B},{Hkv},{S},"
-            f"{D}] fp32 causal on {card}: {km['ms']:.4f} ms (turns "
-            f"{', '.join(f'{t:.4f}' for t in turns[var])}), bound "
-            f"{km['bound_ms']:.4f} ms ({km['bound_by']}, "
-            + ("three bf16 products for each, bf16 rate"
-               if var == "wgmma_f32" else "fp32 rate")
-            + f"; {km['flops'] / 1e9:.1f} GFLOP, {km['bytes'] / 1e6:.1f} "
-            f"MB), SDPA fp32 {km['library_ms']:.4f} ms (turns "
-            f"{', '.join(f'{t:.4f}' for t in turns['sdpa_f32'])}), plain "
-            f"fp32 {km['plain_ms']:.3f} ms, max |kernel-plain| "
-            f"{km['max_abs_err']:.3g}, max |kernel-float64| "
-            f"{f64[var]:.3g} (fp32 plain version: {f64['plain']:.3g})")
-    for tag, L, bdt, names in K3_TIMED:
-        k3 = k3m[tag]
-        plain_turns = ", ".join(f"{t:.4f}" for t in k3["turns"]["plain"])
+    for tag, names in K2_TIMED_F32.items():
+        B, H, Hkv, S, D = K2_TIMED[tag]
+        turns = k2m[tag]["turns"]
+        f64 = k2m[tag]["f64_err"]
         for var in names:
-            km = k3[var]
-            turns = ", ".join(f"{t:.4f}" for t in k3["turns"][var])
-            log(f"K3 {var} at x [8,{L},64,64] f32, B/C "
-                f"{str(bdt).replace('torch.', '')}, chunk 128 on {card}: "
-                f"{km['ms']:.4f} ms (turns {turns}), bound "
-                f"{km['bound_ms']:.4f} ms ({km['bound_by']}; "
-                f"{km['flops'] / 1e9:.2f} GFLOP, {km['bytes'] / 1e6:.1f} "
-                f"MB), plain {km['plain_ms']:.4f} ms (turns {plain_turns}),"
-                f" library none (no single PyTorch call computes it), max "
-                f"|kernel-plain| {km['max_abs_err']:.3g}, max "
-                f"|kernel-float64| {km['f64_err']:.3g} (fp32 plain "
-                f"version: {k3['plain_f64_err']:.3g})"
-                + (f"; of which the pre-pass (B and C into bf16 hi/lo "
-                   f"planes) {k3['prepass_ms']:.4f} ms"
-                   if var == "wgmma_split" else ""))
+            km = k2m[tag][var]
+            log(f"K2 {var} at {tag} q [{B},{H},{S},{D}], k/v [{B},{Hkv},"
+                f"{S},{D}] fp32 causal on {card}: {km['ms']:.4f} ms (turns "
+                f"{', '.join(f'{t:.4f}' for t in turns[var])}), bound "
+                f"{km['bound_ms']:.4f} ms ({km['bound_by']}, "
+                + ("three bf16 products for each, bf16 rate"
+                   if var == "wgmma_f32" else "fp32 rate")
+                + f"; {km['flops'] / 1e9:.1f} GFLOP, "
+                f"{km['bytes'] / 1e6:.1f} MB), SDPA fp32 "
+                f"{km['library_ms']:.4f} ms (turns "
+                f"{', '.join(f'{t:.4f}' for t in turns['sdpa_f32'])}), "
+                f"plain fp32 {km['plain_ms']:.3f} ms, max |kernel-plain| "
+                f"{km['max_abs_err']:.3g}, max |kernel-float64| "
+                f"{f64[var]:.3g} (fp32 plain version: {f64['plain']:.3g})")
+    report_k3(k3m, K3_TIMED, card)
 
     red = sv["reduced"]["counts"]
     print(json.dumps({"kernels": [
@@ -3359,6 +3605,19 @@ def main() -> int:
                     "src/repro_torch/kernels/ssm_scan/csrc/ssd_scan.cu",
                     "src/repro/kernels/ssm_scan/kernel.py:29",
                     red[1]["simt"], k3m["serve"]["simt"]),
+        kernel_line("ssd_scan_short",
+                    "src/repro_torch/kernels/ssm_scan/csrc/"
+                    "ssd_scan_wgmma.cu",
+                    "src/repro/kernels/ssm_scan/kernel.py:29",
+                    sv["short"]["k3"]["wgmma_short"],
+                    k3m[f"L{SHORT_PROMPT}_B{SERVE_B}_bf16"]["wgmma_short"]),
+        kernel_line("ssd_scan_short_split",
+                    "src/repro_torch/kernels/ssm_scan/csrc/"
+                    "ssd_scan_wgmma.cu",
+                    "src/repro/kernels/ssm_scan/kernel.py:29",
+                    sv["short"]["k3_f32"]["wgmma_split_short"],
+                    k3m[f"L{SHORT_PROMPT}_B{SERVE_B}_f32bc"]
+                    ["wgmma_split_short"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3368,4 +3627,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--k3-measure"] and len(sys.argv) == 3:
+        sys.exit(k3_measure_main(sys.argv[2]))
+    sys.exit(k3_short_main() if sys.argv[1:] == ["--k3-short"] else main())

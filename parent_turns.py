@@ -17,7 +17,11 @@ card and in the order parent, this tree, this tree, parent:
   the profiler's device time;
 - K3's wgmma kernel at the serving call (x ``[8, 2048, 64, 64]`` f32, B/C
   bf16, chunk 128, from a zero state), by CUDA events, and whether the two
-  trees give the same bits.
+  trees give the same bits;
+- K3 below one chunk (L 12 at B 8 and B 4, and L 64 at B 8, bf16 B/C; L
+  12 at B 8 with f32 B/C): each tree's ``ssd_scan_wgmma`` as serving
+  calls it, split by ``chip_smoke.k3_call_times`` into its loop time,
+  device time and host time a call (the C launchers apart).
 
 Each K1 result is checked against the plain version first.  Prints the
 card's name and power limit beside every time.
@@ -82,7 +86,8 @@ def main(argv) -> int:
              "this": (K, K3)}
     card = C.card_line()
     libs = [k1.LIBRARY for k1, _ in sides.values()] + [
-        k3.WGMMA_LIBRARY for _, k3 in sides.values()]
+        lib for _, k3 in sides.values()
+        for lib in (k3.WGMMA_LIBRARY, k3.LIBRARY)]
     for lib in libs:
         lib.start()
     for lib in libs:
@@ -124,6 +129,37 @@ def main(argv) -> int:
               f"{', '.join(f'{v:.4f}' for v in t)})"
               for s, t in turns.items())
           + f"; same bits: {same}", flush=True)
+
+    keys = ("loop_ms", "device_ms", "host_ms", "ctypes_ms")
+    for L, B, bdt in ((12, 8, C.BF16), (12, 4, C.BF16), (64, 8, C.BF16),
+                      (12, 8, C.F32)):
+        x, a, Bm, Cm = C.k3_inputs(gen, B, L, 64, 64, 64, bdt, 0.7)
+        want = C.ssd_chunked_ref(x, a, Bm, Cm, L)
+        turns = {s: [] for s in sides}
+        for side in order:
+            k3 = sides[side][1]
+            y, st = k3.ssd_scan_wgmma(x, a, Bm, Cm, 128)
+            torch.cuda.synchronize()
+            scale = max(1.0, float(want[0].abs().max()),
+                        float(want[1].abs().max()))
+            C.check(max(float((y - want[0]).abs().max()),
+                        float((st - want[1]).abs().max()))
+                    <= C.K3_TOL * scale, f"K3 ({side}) vs plain at L {L}")
+            turns[side].append(C.k3_call_times(
+                lambda fn=k3.ssd_scan_wgmma: fn(x, a, Bm, Cm, 128),
+                per_call=2 if bdt == C.F32 else 1, mod=k3))
+
+        def fmt(v):
+            return "not measured" if v is None else f"{v:.4f}"
+
+        print(f"K3 at x [{B},{L},64,64] f32, B/C "
+              f"{str(bdt).replace('torch.', '')}, chunk 128, as serving "
+              f"calls it, on {card}: " + "; ".join(
+                  f"{s} " + ", ".join(
+                      f"{k} {fmt(C.mean_turns(ts)[k])}"
+                      + f" ({', '.join(fmt(t[k]) for t in ts)})"
+                      for k in keys)
+                  for s, ts in turns.items()), flush=True)
     return 0
 
 

@@ -4,12 +4,15 @@
 // Replaces repro/kernels/ssm_scan/kernel.py::_ssd_kernel (the Pallas TPU
 // kernel) at P = N = 64 and a configured chunk of 128 steps, for any L and
 // any B/C dtype, in two instances: bf16 B and C (ssd_scan_wgmma_launch),
-// and f32 or f16 B and C (ssd_scan_split_launch, the split instance).
-// ssd_scan.cu beside it keeps the narrower dims and chunks under 128.
+// and f32 or f16 B and C (ssd_scan_split_launch, the split instance); each
+// at two chunk tiles, 128 steps (any L) and 64 (the short kernel, for
+// L <= 64; see below).  ssd_scan.cu beside it keeps the narrower dims and
+// chunks under 128.
 // Same function: for every (batch b, head h) stream, with x [B, L, H, P]
 // f32 (dt folded in), the decay a [B, L, H] f32 and B, C [B, L, N] shared
-// by all heads (read at batch b), per chunk of Q = 128 steps with cum the
-// inclusive cumsum of log(max(a, 1e-20)):
+// by all heads (read at batch b), per chunk of Q steps (the tile: 128, or
+// 64 in the short kernel) with cum the inclusive cumsum of
+// log(max(a, 1e-20)):
 //
 //   M[i, j]  = (C_i . B_j) exp(cum_i - cum_j) for i >= j, else exactly 0
 //   y_i      = sum_j M[i, j] x_j + exp(cum_i) (C_i . S^T)
@@ -17,7 +20,7 @@
 //
 // Steps past L are read as a = 1 and x = B = C = 0 (TMA fills the rows
 // with zeros) and are not written: a ragged tail, and a sequence shorter
-// than one chunk, which is one chunk padded to 128.  That is the
+// than one chunk, which is one chunk padded to the tile.  That is the
 // reference's arithmetic at Q = min(chunk, L): the padded steps add 0 to
 // cum and nothing to y or the state; only the rounding differs.
 // Outputs: y [B, L, H, P] f32 and the final state [B, H, P, N] f32.  The
@@ -83,7 +86,7 @@
 //   the 168 a thread that 384 threads start with, warpgroup 0 (the state,
 //   C.B^T, y and the M fragments live at once) spills.
 //
-// Shared memory (bytes), one CTA per SM:
+// Shared memory (bytes) at Q = 128, one CTA per SM:
 //   x f32, 2 stages                  65,536
 //   B and C bf16, 2 stages           65,536
 //   x hi/lo, xd hi/lo bf16           65,536   (single: rewritten each chunk)
@@ -107,8 +110,27 @@
 // B/C stage once the consumers release the previous chunk's, after it has
 // loaded the next x and computed its cumsum.
 //
+// The short kernel (ssd_short_kernel, Q = 64).  A sequence of 1 <= L <= 64
+// steps is one chunk padded to 64 steps, not to 128: half the rows, and
+// products of half the keys.  One warpgroup of 128 threads does all of it:
+// warp 0 issues the chunk's TMA loads (one stage, no ring: there is no
+// next chunk to prefetch) and computes its cumsum while they land, then
+// the four warps run warpgroup 0's body above on rows 0-63.  No producer
+// and no setmaxnreg: a thread may keep 255 registers.  Its shared memory
+// is the layout above at Q = 64 with one stage (x 16 KB, B/C 32 KB, the
+// split tiles 32 KB, S 16 KB, cum 768 bytes: 99,112 + 1,024 bytes), so two
+// CTAs share an SM: the 512 streams of B 8 x H 64 run in two waves over
+// 132 SMs instead of four, the serving launcher's 256 (B 4) in one.
+//
+// Set-up.  Each kernel instance's dynamic shared memory is set (and the
+// 128-step kernel's registers checked) once per device, not per launch.
+// The tensor maps are encoded on every launch: they hold the tensors'
+// addresses, which change from call to call.
+//
 // Every mbarrier wait traps after about 2^34 cycles (a lost arrival), and
 // the launcher refuses a build with too few registers for setmaxnreg.
+
+#include <atomic>
 
 #include "../../common/hopper.cuh"
 
@@ -116,44 +138,61 @@ namespace {
 
 using namespace hopper;
 
-constexpr int Q = 128;          // chunk
 constexpr int P = 64;           // head dim
 constexpr int N = 64;           // state dim
-constexpr int STAGES = 2;       // depth of the input ring
-constexpr int NC = 256;         // consumer threads: two warpgroups
-constexpr int NT = NC + 128;    // and the producer warpgroup
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
 constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr int X_BYTES = Q * P * 4;      // f32 [Q][P], unswizzled
-constexpr int BC_BYTES = Q * N * 2;     // bf16 [Q][N], 128-byte swizzle
-constexpr int T_BYTES = Q * 64 * 2;     // one bf16 split tile [Q][64]
-constexpr int S_BYTES = P * N * 2;      // one bf16 state tile [P][N]
-constexpr int CUM_BYTES = 3 * Q * 4;    // cum, exp(cum), dout of one stage
-constexpr int X_OFF = 0;
-constexpr int B_OFF = X_OFF + STAGES * X_BYTES;
-constexpr int C_OFF = B_OFF + STAGES * BC_BYTES;
-constexpr int XH_OFF = C_OFF + STAGES * BC_BYTES;
-constexpr int XL_OFF = XH_OFF + T_BYTES;
-constexpr int DH_OFF = XL_OFF + T_BYTES;
-constexpr int DL_OFF = DH_OFF + T_BYTES;
-constexpr int SH_OFF = DL_OFF + T_BYTES;
-constexpr int SL_OFF = SH_OFF + S_BYTES;
-constexpr int CUM_OFF = SL_OFF + S_BYTES;
-constexpr int BAR_OFF = CUM_OFF + STAGES * CUM_BYTES;
-// barriers: full[STAGES] (TMA), cum_full[STAGES] (producer warp),
-// empty[STAGES] (lane 0 of each consumer warp), and for the split instance
-// bc_full (TMA) and bc_empty (lane 0 of each consumer warp)
-constexpr int SMEM_BYTES = BAR_OFF + (3 * STAGES + 2) * 8;
-constexpr int ALLOC = SMEM_BYTES + 1024;   // room to align to 1024
-static_assert(ALLOC <= 232448, "over the 227 KB a CTA may use");
-static_assert(SH_OFF % 1024 == 0 && XH_OFF % 1024 == 0, "tile alignment");
+// The shared-memory layout of one CTA at a chunk tile of Q_ steps: Q_ =
+// 128 (two stages of inputs, two consumer warpgroups and a producer
+// warpgroup) or Q_ = 64 (the short instance: one stage, one warpgroup).
+template <int Q_>
+struct Tile {
+  static constexpr int Q = Q_;                       // chunk
+  static constexpr int STAGES = Q == 128 ? 2 : 1;    // depth of the ring
+  static constexpr int NC = 2 * Q;    // consumer threads: Q / 64 warpgroups
+  // and the producer warpgroup at Q 128
+  static constexpr int THREADS = Q == 128 ? NC + 128 : NC;
+  static constexpr int X_BYTES = Q * P * 4;      // f32 [Q][P], unswizzled
+  static constexpr int BC_BYTES = Q * N * 2;     // bf16 [Q][N], 128B swizzle
+  static constexpr int T_BYTES = Q * 64 * 2;     // a bf16 split tile [Q][64]
+  static constexpr int S_BYTES = P * N * 2;      // a bf16 state tile [P][N]
+  static constexpr int CUM_BYTES = 3 * Q * 4;    // cum, exp(cum), dout
+  static constexpr int X_OFF = 0;
+  // B/C: four tiles, two stages of B and C (bf16 instance at Q 128; at Q
+  // 64 one stage), or one stage of B hi, B lo, C hi, C lo (split)
+  static constexpr int B_OFF = X_OFF + STAGES * X_BYTES;
+  static constexpr int C_OFF = B_OFF + STAGES * BC_BYTES;
+  static constexpr int XH_OFF = B_OFF + 4 * BC_BYTES;
+  static constexpr int XL_OFF = XH_OFF + T_BYTES;
+  static constexpr int DH_OFF = XL_OFF + T_BYTES;
+  static constexpr int DL_OFF = DH_OFF + T_BYTES;
+  static constexpr int SH_OFF = DL_OFF + T_BYTES;
+  static constexpr int SL_OFF = SH_OFF + S_BYTES;
+  static constexpr int CUM_OFF = SL_OFF + S_BYTES;
+  static constexpr int BAR_OFF = CUM_OFF + STAGES * CUM_BYTES;
+  // barriers: full[STAGES] (TMA), cum_full[STAGES] (cumsum warp),
+  // empty[STAGES] (lane 0 of each consumer warp), and for the split
+  // instance bc_full (TMA) and bc_empty (lane 0 of each consumer warp)
+  static constexpr int SMEM_BYTES = BAR_OFF + (3 * STAGES + 2) * 8;
+  static constexpr int ALLOC = SMEM_BYTES + 1024;   // room to align to 1024
+  static_assert(ALLOC <= 232448, "over the 227 KB a CTA may use");
+  static_assert(SH_OFF % 1024 == 0 && XH_OFF % 1024 == 0 &&
+                B_OFF % 1024 == 0, "tile alignment");
+};
+using T128 = Tile<128>;
+using T64 = Tile<64>;
+constexpr int NT = T128::THREADS;
+// two 64-step CTAs share an SM: 2 x 128 threads x 255 registers fit its
+// 65,536, and 2 x ALLOC its 228 KB of shared memory
+static_assert(2 * (T64::ALLOC + 1024) <= 233472, "two short CTAs an SM");
 
 // K-major 128-byte-swizzled operand: rows of 64 bf16, 8-row groups 1024
 // bytes apart.  MN-major: the same tile read along its rows.
 __device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
   return sw128_desc(addr, 16, 1024);
 }
+template <int Q>
 __device__ __forceinline__ uint64_t mnmajor(uint32_t addr) {
   return sw128_desc(addr, Q * 128, 1024);
 }
@@ -168,32 +207,40 @@ struct Ctx {
   int L, n_chunks;
 };
 
+template <int Q>
 __device__ __forceinline__ uint32_t bar_full(uint32_t base, int s) {
-  return base + BAR_OFF + 8u * s;
+  return base + Tile<Q>::BAR_OFF + 8u * s;
 }
+template <int Q>
 __device__ __forceinline__ uint32_t bar_cum(uint32_t base, int s) {
-  return base + BAR_OFF + 8u * (STAGES + s);
+  return base + Tile<Q>::BAR_OFF + 8u * (Tile<Q>::STAGES + s);
 }
+template <int Q>
 __device__ __forceinline__ uint32_t bar_empty(uint32_t base, int s) {
-  return base + BAR_OFF + 8u * (2 * STAGES + s);
+  return base + Tile<Q>::BAR_OFF + 8u * (2 * Tile<Q>::STAGES + s);
 }
+template <int Q>
 __device__ __forceinline__ uint32_t bar_bc_full(uint32_t base) {
-  return base + BAR_OFF + 8u * (3 * STAGES);
+  return base + Tile<Q>::BAR_OFF + 8u * (3 * Tile<Q>::STAGES);
 }
+template <int Q>
 __device__ __forceinline__ uint32_t bar_bc_empty(uint32_t base) {
-  return base + BAR_OFF + 8u * (3 * STAGES + 1);
+  return base + Tile<Q>::BAR_OFF + 8u * (3 * Tile<Q>::STAGES + 1);
 }
 
-// Where chunk stage s's B and C tiles lie.  bf16 instance: B and C, two
-// stages each.  Split instance: one stage of B hi, B lo, C hi, C lo in the
-// same 64 KB (the lo tiles are hi + BC_BYTES).
-template <bool SPLIT>
+// Where chunk stage s's B and C tiles lie.  bf16 instance: B and C,
+// STAGES stages each.  Split instance: one stage of B hi, B lo, C hi, C lo
+// (the lo tiles are hi + BC_BYTES).
+template <int Q, bool SPLIT>
 __device__ __forceinline__ uint32_t b_tile(uint32_t base, int s) {
-  return SPLIT ? base + B_OFF : base + B_OFF + s * BC_BYTES;
+  using T = Tile<Q>;
+  return SPLIT ? base + T::B_OFF : base + T::B_OFF + s * T::BC_BYTES;
 }
-template <bool SPLIT>
+template <int Q, bool SPLIT>
 __device__ __forceinline__ uint32_t c_tile(uint32_t base, int s) {
-  return SPLIT ? base + B_OFF + 2 * BC_BYTES : base + C_OFF + s * BC_BYTES;
+  using T = Tile<Q>;
+  return SPLIT ? base + T::B_OFF + 2 * T::BC_BYTES
+               : base + T::C_OFF + s * T::BC_BYTES;
 }
 
 // Consumer warpgroup W: chunk rows [64 W, 64 W + 64).  FROM_STATE: the
@@ -201,11 +248,13 @@ __device__ __forceinline__ uint32_t c_tile(uint32_t base, int s) {
 // argument, so that the scan from zero compiles as it did without it.
 // SPLIT: B and C arrive as bf16 hi/lo tiles, and every product with one
 // of them takes three products (hi.hi + hi.lo + lo.hi).
-template <int W, bool FROM_STATE, bool SPLIT>
+template <int Q, int W, bool FROM_STATE, bool SPLIT>
 __device__ __forceinline__ void consume(const Ctx& cx) {
+  using T = Tile<Q>;
+  constexpr int NC = T::NC;
   constexpr int KS = (W + 1) * 4;       // k-steps of 16 keys in M.x
   constexpr int NCB = (W + 1) * 64;     // keys of C.B^T this group needs
-  const int t = threadIdx.x;            // 0..255
+  const int t = threadIdx.x;            // 0..NC-1
   const int warp = (t % 128) / 32, lane = t % 32;
   const int rl = warp * 16 + lane / 4;  // this thread's rows: rl, rl + 8
   const int i0 = W * 64 + rl;
@@ -234,20 +283,20 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
   }
 
   for (int ck = 0; ck < cx.n_chunks; ++ck) {
-    const int s = ck % STAGES;
-    const uint32_t ph = (ck / STAGES) & 1;
+    const int s = ck % T::STAGES;
+    const uint32_t ph = (ck / T::STAGES) & 1;
     const int t0 = ck * Q;
-    const uint32_t bs = b_tile<SPLIT>(base, s);
-    const uint32_t cs = c_tile<SPLIT>(base, s);
-    const float* xf =
-        reinterpret_cast<const float*>(cx.gbase + X_OFF + s * X_BYTES);
-    const float* cum =
-        reinterpret_cast<const float*>(cx.gbase + CUM_OFF + s * CUM_BYTES);
+    const uint32_t bs = b_tile<Q, SPLIT>(base, s);
+    const uint32_t cs = c_tile<Q, SPLIT>(base, s);
+    const float* xf = reinterpret_cast<const float*>(
+        cx.gbase + T::X_OFF + s * T::X_BYTES);
+    const float* cum = reinterpret_cast<const float*>(
+        cx.gbase + T::CUM_OFF + s * T::CUM_BYTES);
     const float* ecum = cum + Q;
     const float* dout = cum + 2 * Q;
-    mbar_wait(bar_cum(base, s), ph);
-    mbar_wait(bar_full(base, s), ph);
-    if constexpr (SPLIT) mbar_wait(bar_bc_full(base), ck & 1);
+    // B and C first: C.B^T needs neither x nor the cumsum
+    if constexpr (SPLIT) mbar_wait(bar_bc_full<Q>(base), ck & 1);
+    else mbar_wait(bar_full<Q>(base, s), ph);
 
     // 1a. cb = C.B^T, issued first: the tensor cores run it under the split
     float cb[NCB / 2];
@@ -258,8 +307,8 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
     // split: C_hi.B_hi^T + C_hi.B_lo^T + C_lo.B_hi^T
 #pragma unroll
     for (int p = 0; p < (SPLIT ? 3 : 1); ++p) {
-      const uint32_t cp = ca + (p == 2 ? BC_BYTES : 0);
-      const uint32_t bp = bs + (p == 1 ? BC_BYTES : 0);
+      const uint32_t cp = ca + (p == 2 ? T::BC_BYTES : 0);
+      const uint32_t bp = bs + (p == 1 ? T::BC_BYTES : 0);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         if constexpr (W == 0)
@@ -271,6 +320,8 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
     }
     wg_commit();
     fence_regs(cb);
+    if constexpr (SPLIT) mbar_wait(bar_full<Q>(base, s), ph);    // x
+    mbar_wait(bar_cum<Q>(base, s), ph);
 
     // 1b. split x and xd = x * dout: four 16-byte chunks of 8 values a thread
 #pragma unroll
@@ -291,10 +342,10 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
       split2(v[4] * dj, v[5] * dj, dh.z, dl.z);
       split2(v[6] * dj, v[7] * dj, dh.w, dl.w);
       const uint32_t off = row * 128 + (((q ^ row) & 7) << 4);
-      *reinterpret_cast<uint4*>(cx.gbase + XH_OFF + off) = xh;
-      *reinterpret_cast<uint4*>(cx.gbase + XL_OFF + off) = xl;
-      *reinterpret_cast<uint4*>(cx.gbase + DH_OFF + off) = dh;
-      *reinterpret_cast<uint4*>(cx.gbase + DL_OFF + off) = dl;
+      *reinterpret_cast<uint4*>(cx.gbase + T::XH_OFF + off) = xh;
+      *reinterpret_cast<uint4*>(cx.gbase + T::XL_OFF + off) = xl;
+      *reinterpret_cast<uint4*>(cx.gbase + T::DH_OFF + off) = dh;
+      *reinterpret_cast<uint4*>(cx.gbase + T::DL_OFF + off) = dl;
     }
     // the state entering this chunk, as S_hi/S_lo
     if (W == 0 && (ck > 0 || FROM_STATE)) {
@@ -306,8 +357,8 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
           uint32_t hi, lo;
           split2(S[4 * g + 2 * r], S[4 * g + 2 * r + 1], hi, lo);
           const uint32_t off = sw128_offset(rl + 8 * r, n);
-          *reinterpret_cast<uint32_t*>(cx.gbase + SH_OFF + off) = hi;
-          *reinterpret_cast<uint32_t*>(cx.gbase + SL_OFF + off) = lo;
+          *reinterpret_cast<uint32_t*>(cx.gbase + T::SH_OFF + off) = hi;
+          *reinterpret_cast<uint32_t*>(cx.gbase + T::SL_OFF + off) = lo;
         }
       }
     }
@@ -325,16 +376,16 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_ss_n64_bf16<0, 0>(y, kmajor(ca + kk * 32),
-                                kmajor(base + SH_OFF + kk * 32), 1);
+                                kmajor(base + T::SH_OFF + kk * 32), 1);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_ss_n64_bf16<0, 0>(y, kmajor(ca + kk * 32),
-                                kmajor(base + SL_OFF + kk * 32), 1);
+                                kmajor(base + T::SL_OFF + kk * 32), 1);
       if constexpr (SPLIT) {
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss_n64_bf16<0, 0>(y, kmajor(ca + BC_BYTES + kk * 32),
-                                  kmajor(base + SH_OFF + kk * 32), 1);
+          wgmma_ss_n64_bf16<0, 0>(y, kmajor(ca + T::BC_BYTES + kk * 32),
+                                  kmajor(base + T::SH_OFF + kk * 32), 1);
       }
       wg_commit();
       fence_regs(y);
@@ -378,8 +429,8 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      const uint64_t xh = mnmajor(base + XH_OFF + ks * 16 * 128);
-      const uint64_t xl = mnmajor(base + XL_OFF + ks * 16 * 128);
+      const uint64_t xh = mnmajor<Q>(base + T::XH_OFF + ks * 16 * 128);
+      const uint64_t xl = mnmajor<Q>(base + T::XL_OFF + ks * 16 * 128);
       wgmma_rs_n64_bf16(y, mh + 4 * ks, xh);
       wgmma_rs_n64_bf16(y, mh + 4 * ks, xl);
       wgmma_rs_n64_bf16(y, ml + 4 * ks, xh);
@@ -389,15 +440,14 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
     if constexpr (W == 0) {
 #pragma unroll
       for (int ks = 0; ks < Q / 16; ++ks) {
-        const uint64_t bt = mnmajor(bs + ks * 16 * 128);
-        wgmma_ss_n64_bf16<1, 1>(S, mnmajor(base + DH_OFF + ks * 16 * 128),
-                                bt, 1);
-        wgmma_ss_n64_bf16<1, 1>(S, mnmajor(base + DL_OFF + ks * 16 * 128),
-                                bt, 1);
+        const uint64_t bt = mnmajor<Q>(bs + ks * 16 * 128);
+        const uint64_t dh = mnmajor<Q>(base + T::DH_OFF + ks * 16 * 128);
+        wgmma_ss_n64_bf16<1, 1>(S, dh, bt, 1);
+        wgmma_ss_n64_bf16<1, 1>(
+            S, mnmajor<Q>(base + T::DL_OFF + ks * 16 * 128), bt, 1);
         if constexpr (SPLIT)
           wgmma_ss_n64_bf16<1, 1>(
-              S, mnmajor(base + DH_OFF + ks * 16 * 128),
-              mnmajor(bs + BC_BYTES + ks * 16 * 128), 1);
+              S, dh, mnmajor<Q>(bs + T::BC_BYTES + ks * 16 * 128), 1);
       }
       wg_commit();
       fence_regs(S);
@@ -425,8 +475,8 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
       fence_regs(S);
     }
     if (lane == 0) {
-      mbar_arrive(bar_empty(base, s));
-      if constexpr (SPLIT) mbar_arrive(bar_bc_empty(base));
+      mbar_arrive(bar_empty<Q>(base, s));
+      if constexpr (SPLIT) mbar_arrive(bar_bc_empty<Q>(base));
     }
     named_bar_sync(1, NC);
   }
@@ -443,6 +493,98 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
   }
 }
 
+__device__ __forceinline__ uint32_t aligned_base(unsigned char* smem_raw,
+                                                 unsigned char** gbase) {
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  *gbase = smem_raw + (base - raw);
+  return base;
+}
+
+template <int Q>
+__device__ __forceinline__ void init_barriers(uint32_t base) {
+  for (int s = 0; s < Tile<Q>::STAGES; ++s) {
+    mbar_init(bar_full<Q>(base, s), 1);
+    mbar_init(bar_cum<Q>(base, s), 32);     // every lane of the cumsum warp
+    // lane 0 of each consumer warp
+    mbar_init(bar_empty<Q>(base, s), Tile<Q>::NC / 32);
+  }
+  mbar_init(bar_bc_full<Q>(base), 1);
+  mbar_init(bar_bc_empty<Q>(base), Tile<Q>::NC / 32);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One thread: TMA-load chunk stage s's x (and, in the bf16 instance, its
+// B and C) onto the stage's full barrier.
+template <int Q, bool SPLIT>
+__device__ __forceinline__ void load_x_bc(uint32_t base, int s, int t0, int b,
+                                          int h, const CUtensorMap* tm_x,
+                                          const CUtensorMap* tm_b,
+                                          const CUtensorMap* tm_c) {
+  using T = Tile<Q>;
+  const uint32_t full = bar_full<Q>(base, s);
+  mbar_expect_tx(full, SPLIT ? T::X_BYTES : T::X_BYTES + 2 * T::BC_BYTES);
+  tma_load(base + T::X_OFF + s * T::X_BYTES, tm_x, full, 0, t0, h, b);
+  if constexpr (!SPLIT) {
+    tma_load_3d(base + T::B_OFF + s * T::BC_BYTES, tm_b, full, 0, t0, b);
+    tma_load_3d(base + T::C_OFF + s * T::BC_BYTES, tm_c, full, 0, t0, b);
+  }
+}
+
+// One thread, split instance: TMA-load the chunk's B hi, B lo, C hi, C lo
+// tiles onto bc_full (tm_b maps the four planes as batches p * Bsz + b).
+template <int Q>
+__device__ __forceinline__ void load_planes(uint32_t base, int t0, int b,
+                                            int Bsz, const CUtensorMap* tm_b) {
+  using T = Tile<Q>;
+  const uint32_t full = bar_bc_full<Q>(base);
+  mbar_expect_tx(full, 4 * T::BC_BYTES);
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+    tma_load_3d(base + T::B_OFF + p * T::BC_BYTES, tm_b, full, 0, t0,
+                p * Bsz + b);
+}
+
+// One warp: chunk stage s's inclusive cumsum of log(max(a, 1e-20)) (Q / 32
+// steps a lane, then a scan across lanes; steps past L decay by 1), with
+// exp(cum) and exp(cum_last - cum), into the stage's cum tile; then every
+// lane arrives on the stage's cum barrier.
+template <int Q>
+__device__ __forceinline__ void chunk_cumsum(uint32_t base,
+                                             unsigned char* gbase, int s,
+                                             int t0, const float* ap,
+                                             long long ast, int L, int lane) {
+  using T = Tile<Q>;
+  constexpr int PER = Q / 32;
+  float v[PER], run = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int tt = t0 + lane * PER + k;
+    const float av = tt < L ? ap[static_cast<long long>(tt) * ast] : 1.f;
+    run += logf(fmaxf(av, 1e-20f));
+    v[k] = run;
+  }
+  float off = run;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, off, d);
+    if (lane >= d) off += o;
+  }
+  const float last = __shfl_sync(0xffffffffu, off, 31);
+  off -= run;      // exclusive prefix of this lane's total
+  float* cs = reinterpret_cast<float*>(gbase + T::CUM_OFF + s * T::CUM_BYTES);
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = lane * PER + k;
+    const float c = off + v[k];
+    cs[j] = c;
+    cs[Q + j] = expf(c);
+    cs[2 * Q + j] = expf(last - c);
+  }
+  mbar_arrive(bar_cum<Q>(base, s));
+}
+
+// The 128-step instance: any L, chunk after chunk, through the ring.
 template <bool FROM_STATE, bool SPLIT>
 __global__ void __launch_bounds__(NT, 1)
 ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
@@ -451,24 +593,14 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                  const float* __restrict__ a, float* __restrict__ y,
                  float* __restrict__ state_out,
                  const float* __restrict__ init_state, int L, int H,
-                 long long asb,
-                 long long ast, long long ash, long long ysb, long long yst,
-                 long long ysh) {
+                 long long asb, long long ast, long long ash, long long ysb,
+                 long long yst, long long ysh) {
+  using T = T128;
+  constexpr int Q = 128, NC = T::NC;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  unsigned char* gbase = smem_raw + (base - raw);
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(bar_full(base, s), 1);
-      mbar_init(bar_cum(base, s), 32);     // every lane of the producer
-      mbar_init(bar_empty(base, s), NC / 32);  // lane 0 of each consumer warp
-    }
-    mbar_init(bar_bc_full(base), 1);
-    mbar_init(bar_bc_empty(base), NC / 32);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  unsigned char* gbase;
+  const uint32_t base = aligned_base(smem_raw, &gbase);
+  if (threadIdx.x == 0) init_barriers<Q>(base);
   __syncthreads();
   // Values live across setmaxnreg are spilled: each side computes its own
   // after it.
@@ -482,59 +614,18 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     const int n_chunks = (L + Q - 1) / Q;
     const float* ap = a + b * asb + h * ash;
     for (int ck = 0; ck < n_chunks; ++ck) {
-      const int s = ck % STAGES;
+      const int s = ck % T::STAGES;
       const int t0 = ck * Q;
-      mbar_wait(bar_empty(base, s), ((ck / STAGES) & 1) ^ 1);
-      if (lane == 0) {
-        const uint32_t full = bar_full(base, s);
-        mbar_expect_tx(full, SPLIT ? X_BYTES : X_BYTES + 2 * BC_BYTES);
-        tma_load(base + X_OFF + s * X_BYTES, &tm_x, full, 0, t0, h, b);
-        if constexpr (!SPLIT) {
-          tma_load_3d(base + B_OFF + s * BC_BYTES, &tm_b, full, 0, t0, b);
-          tma_load_3d(base + C_OFF + s * BC_BYTES, &tm_c, full, 0, t0, b);
-        }
-      }
-      // inclusive cumsum of log(max(a, 1e-20)): 4 steps a lane, then a
-      // scan across lanes; steps past L decay by 1
-      float v[4], run = 0.f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int tt = t0 + lane * 4 + k;
-        const float av = tt < L ? ap[static_cast<long long>(tt) * ast] : 1.f;
-        run += logf(fmaxf(av, 1e-20f));
-        v[k] = run;
-      }
-      float off = run;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, off, d);
-        if (lane >= d) off += o;
-      }
-      const float last = __shfl_sync(0xffffffffu, off, 31);
-      off -= run;      // exclusive prefix of this lane's total
-      float* cs = reinterpret_cast<float*>(gbase + CUM_OFF + s * CUM_BYTES);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int j = lane * 4 + k;
-        const float c = off + v[k];
-        cs[j] = c;
-        cs[Q + j] = expf(c);
-        cs[2 * Q + j] = expf(last - c);
-      }
-      mbar_arrive(bar_cum(base, s));
+      mbar_wait(bar_empty<Q>(base, s), ((ck / T::STAGES) & 1) ^ 1);
+      if (lane == 0)
+        load_x_bc<Q, SPLIT>(base, s, t0, b, h, &tm_x, &tm_b, &tm_c);
+      chunk_cumsum<Q>(base, gbase, s, t0, ap, ast, L, lane);
       // split: the single B/C stage is refilled once the consumers are
-      // done with the previous chunk's (tm_b maps the four planes B hi,
-      // B lo, C hi, C lo as batches p * Bsz + b)
+      // done with the previous chunk's
       if constexpr (SPLIT) {
         if (lane == 0) {
-          const uint32_t full = bar_bc_full(base);
-          const int Bsz = gridDim.x / H;
-          mbar_wait(bar_bc_empty(base), (ck & 1) ^ 1);
-          mbar_expect_tx(full, 4 * BC_BYTES);
-#pragma unroll
-          for (int p = 0; p < 4; ++p)
-            tma_load_3d(base + B_OFF + p * BC_BYTES, &tm_b, full, 0, t0,
-                        p * Bsz + b);
+          mbar_wait(bar_bc_empty<Q>(base), (ck & 1) ^ 1);
+          load_planes<Q>(base, t0, b, gridDim.x / H, &tm_b);
         }
       }
     }
@@ -549,8 +640,46 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
          init_state ? init_state + static_cast<long long>(blockIdx.x) * P * N
                     : nullptr,
          L, n_chunks};
-  if (threadIdx.x < 128) consume<0, FROM_STATE, SPLIT>(cx);
-  else consume<1, FROM_STATE, SPLIT>(cx);
+  if (threadIdx.x < 128) consume<Q, 0, FROM_STATE, SPLIT>(cx);
+  else consume<Q, 1, FROM_STATE, SPLIT>(cx);
+}
+
+// The 64-step instance, for 1 <= L <= 64: one chunk, one stage, one
+// warpgroup of 128 threads (no producer, no setmaxnreg: a thread may hold
+// 255 registers and two CTAs share an SM).  Warp 0 issues the chunk's
+// loads and computes its cumsum while the TMA copies land; then all four
+// warps run warpgroup 0's body of the 128-step instance on rows 0-63.
+template <bool FROM_STATE, bool SPLIT>
+__global__ void __launch_bounds__(T64::NC, 2)
+ssd_short_kernel(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_b,
+                 const __grid_constant__ CUtensorMap tm_c,
+                 const float* __restrict__ a, float* __restrict__ y,
+                 float* __restrict__ state_out,
+                 const float* __restrict__ init_state, int L, int H,
+                 long long asb, long long ast, long long ash, long long ysb,
+                 long long yst, long long ysh) {
+  constexpr int Q = 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* gbase;
+  const uint32_t base = aligned_base(smem_raw, &gbase);
+  if (threadIdx.x == 0) init_barriers<Q>(base);
+  __syncthreads();
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      load_x_bc<Q, SPLIT>(base, 0, 0, b, h, &tm_x, &tm_b, &tm_c);
+      if constexpr (SPLIT) load_planes<Q>(base, 0, b, gridDim.x / H, &tm_b);
+    }
+    chunk_cumsum<Q>(base, gbase, 0, 0, a + b * asb + h * ash, ast, L, lane);
+  }
+  Ctx cx{base, gbase, y + b * ysb + h * ysh, yst,
+         state_out + static_cast<long long>(blockIdx.x) * P * N,
+         init_state ? init_state + static_cast<long long>(blockIdx.x) * P * N
+                    : nullptr,
+         L, 1};
+  consume<Q, 0, FROM_STATE, SPLIT>(cx);
 }
 
 // The split instance's pre-pass: B and C (f32 or f16, [Bsz, L, 64] with
@@ -604,9 +733,9 @@ __global__ void split_bc_kernel(const T* __restrict__ Bm,
 
 // ---- host side -------------------------------------------------------------
 
-// x [B, L, H, 64] f32 as a 4-D map (P, L, H, B), boxes of 64 x 128 steps,
+// x [B, L, H, 64] f32 as a 4-D map (P, L, H, B), boxes of 64 x Q steps,
 // unswizzled; st: its (batch, step, head) element strides.
-CUresult encode_x(CUtensorMap* map, const void* x, int L, int H, int B,
+CUresult encode_x(CUtensorMap* map, const void* x, int L, int H, int B, int Q,
                   const long long* st) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(P),
                               static_cast<cuuint64_t>(L),
@@ -615,7 +744,7 @@ CUresult encode_x(CUtensorMap* map, const void* x, int L, int H, int B,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[1]) * 4,
                                  static_cast<cuuint64_t>(st[2]) * 4,
                                  static_cast<cuuint64_t>(st[0]) * 4};
-  const cuuint32_t box[4] = {P, Q, 1, 1};
+  const cuuint32_t box[4] = {P, static_cast<cuuint32_t>(Q), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
                                 const_cast<void*>(x), dims, strides, box,
@@ -625,16 +754,16 @@ CUresult encode_x(CUtensorMap* map, const void* x, int L, int H, int B,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// B or C [B, L, 64] bf16 as a 3-D map (N, L, B), boxes of 64 x 128 steps,
+// B or C [B, L, 64] bf16 as a 3-D map (N, L, B), boxes of 64 x Q steps,
 // 128-byte swizzle; sb, st: its batch and step element strides.
-CUresult encode_bc(CUtensorMap* map, const void* p, int L, int B,
+CUresult encode_bc(CUtensorMap* map, const void* p, int L, int B, int Q,
                    long long sb, long long st) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[3] = {N, Q, 1};
+  const cuuint32_t box[3] = {N, static_cast<cuuint32_t>(Q), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                                 const_cast<void*>(p), dims, strides, box,
@@ -645,48 +774,111 @@ CUresult encode_bc(CUtensorMap* map, const void* p, int L, int B,
 }
 
 constexpr int ENCODE_ERROR = 1000;   // + CUresult of cuTensorMapEncodeTiled
+constexpr int MAX_DEVICES = 64;
 
+// both kernels' type (they take the same parameters)
+using ScanKernel = decltype(&ssd_wgmma_kernel<false, false>);
 
-// Set up and launch one instance of the scan.  The split instance reads
-// all four B/C planes through mb (mc is not read).
-template <bool SPLIT>
+template <int Q, bool FROM_STATE, bool SPLIT>
+ScanKernel kernel_of() {
+  if constexpr (Q == 128) return ssd_wgmma_kernel<FROM_STATE, SPLIT>;
+  else return ssd_short_kernel<FROM_STATE, SPLIT>;
+}
+
+// Set up one kernel instance on the current device, once per device: its
+// dynamic shared memory, and a check of its registers.  setmaxnreg moves
+// registers between the warpgroups of the 128-step CTA's own allocation:
+// the kernel must start with enough of them, or the consumers'
+// setmaxnreg.inc would wait forever.  The 64-step CTA does not use
+// setmaxnreg.  Returns 0 or a CUDA error code.
+template <int Q, bool FROM_STATE, bool SPLIT>
+int prepare() {
+  const ScanKernel kernel = kernel_of<Q, FROM_STATE, SPLIT>();
+  static std::atomic<unsigned long long> ready{0};   // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = dev < MAX_DEVICES ? 1ull << dev : 0;
+  if (ready.load(std::memory_order_acquire) & bit) return 0;
+  if constexpr (Q == 128) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (attr.numRegs * NT < 128 * PRODUCER_REGS + T128::NC * CONSUMER_REGS)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<Q>::ALLOC);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ready.fetch_or(bit, std::memory_order_release);
+  return 0;
+}
+
+// Launch one instance of the scan (Q: its chunk tile).  The split instance
+// reads all four B/C planes through mb (mc is not read).
+template <int Q, bool SPLIT>
 int launch_scan(const CUtensorMap& mx, const CUtensorMap& mb,
                 const CUtensorMap& mc, const void* a, void* y,
                 void* state_out, const void* init_state, int Bsz, int L,
                 int H, const long long* st, cudaStream_t stream) {
-  // setmaxnreg moves registers between the warpgroups of the CTA's own
-  // allocation: the kernel must start with enough of them, or the
-  // consumers' setmaxnreg.inc would wait forever.
-  auto* kernel = init_state ? ssd_wgmma_kernel<true, SPLIT>
-                            : ssd_wgmma_kernel<false, SPLIT>;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (attr.numRegs * NT < 128 * PRODUCER_REGS + NC * CONSUMER_REGS)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ALLOC);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<Bsz * H, NT, ALLOC, stream>>>(
+  const ScanKernel kernel = init_state ? kernel_of<Q, true, SPLIT>()
+                                       : kernel_of<Q, false, SPLIT>();
+  const int err = init_state ? prepare<Q, true, SPLIT>()
+                             : prepare<Q, false, SPLIT>();
+  if (err) return err;
+  kernel<<<Bsz * H, Tile<Q>::THREADS, Tile<Q>::ALLOC, stream>>>(
       mx, mb, mc, static_cast<const float*>(a), static_cast<float*>(y),
       static_cast<float*>(state_out), static_cast<const float*>(init_state),
       L, H, st[3], st[4], st[5], st[10], st[11], st[12]);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Encode the maps and launch the bf16 (SPLIT false) or split instance at
+// chunk tile Q.
+template <int Q, bool SPLIT>
+int run_scan(const void* x, const void* a, const void* Bm, const void* Cm,
+             void* y, void* state_out, const void* init_state, int Bsz,
+             int L, int H, const long long* st, void* stream) {
+  CUtensorMap mx, mb, mc;
+  CUresult r = encode_x(&mx, x, L, H, Bsz, Q, st);
+  // the split instance's planes [4][Bsz][L][64] are 4 Bsz batches
+  if (r == CUDA_SUCCESS)
+    r = encode_bc(&mb, Bm, L, SPLIT ? 4 * Bsz : Bsz, Q, st[6], st[7]);
+  if (r == CUDA_SUCCESS && !SPLIT)
+    r = encode_bc(&mc, Cm, L, Bsz, Q, st[8], st[9]);
+  if (r != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(r);
+  return launch_scan<Q, SPLIT>(mx, mb, SPLIT ? mb : mc, a, y, state_out,
+                               init_state, Bsz, L, H, st,
+                               static_cast<cudaStream_t>(stream));
+}
+
+template <int Q, bool FROM_STATE, bool SPLIT>
+int ctas_per_sm() {
+  const int err = prepare<Q, FROM_STATE, SPLIT>();
+  if (err) return -err;
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, kernel_of<Q, FROM_STATE, SPLIT>(), Tile<Q>::THREADS,
+      Tile<Q>::ALLOC);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+using CtasFn = int (*)();
+
 }  // namespace
 
 // The same interface as ssd_scan_launch (ssd_scan.cu), for what this kernel
-// takes: bc_dtype 1 (bf16), P = N = 64, Q = 128 (the configured chunk: a
-// sequence shorter than one chunk is one chunk padded with steps of a = 1
-// and x = B = C = 0), L >= 1.  strides holds 13 element strides: x (batch,
-// step, head), a (batch, step, head), B (batch, step), C (batch, step), y
-// (batch, step, head); the innermost strides of x, B, C and y are 1.  x, B
-// and C need 16-byte aligned bases and strides of a multiple of 16 bytes
-// (TMA); y 8-byte alignment.  The final state is written contiguous [B*H,
-// P, N]; init_state, contiguous [B*H, P, N] f32 with 8-byte alignment, is
-// the state before step 0 (null: zero).  Returns 0, a CUDA error code, or
-// 1000 + the CUresult of a failed tensor-map encoding.
+// takes: bc_dtype 1 (bf16), P = N = 64, L >= 1, and Q_ the chunk tile:
+// 128 (the configured chunk: any L, a sequence shorter than one chunk is
+// one chunk padded with steps of a = 1 and x = B = C = 0) or 64 (the short
+// instance, for L <= 64, padded to 64 steps the same way).  strides holds
+// 13 element strides: x (batch, step, head), a (batch, step, head), B
+// (batch, step), C (batch, step), y (batch, step, head); the innermost
+// strides of x, B, C and y are 1.  x, B and C need 16-byte aligned bases
+// and strides of a multiple of 16 bytes (TMA); y 8-byte alignment.  The
+// final state is written contiguous [B*H, P, N]; init_state, contiguous
+// [B*H, P, N] f32 with 8-byte alignment, is the state before step 0
+// (null: zero).  Returns 0, a CUDA error code, or 1000 + the CUresult of a
+// failed tensor-map encoding.
 extern "C" int ssd_scan_wgmma_launch(const void* x, const void* a,
                                      const void* Bm, const void* Cm,
                                      int bc_dtype, void* y, void* state_out,
@@ -694,15 +886,28 @@ extern "C" int ssd_scan_wgmma_launch(const void* x, const void* a,
                                      int Bsz, int L, int H, int P_, int N_,
                                      int Q_, const long long* st,
                                      void* stream) {
-  if (bc_dtype != 1 || P_ != P || N_ != N || Q_ != Q || L < 1)
+  if (bc_dtype != 1 || P_ != P || N_ != N || L < 1 ||
+      !(Q_ == 128 || (Q_ == 64 && L <= 64)))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mx, mb, mc;
-  CUresult r = encode_x(&mx, x, L, H, Bsz, st);
-  if (r == CUDA_SUCCESS) r = encode_bc(&mb, Bm, L, Bsz, st[6], st[7]);
-  if (r == CUDA_SUCCESS) r = encode_bc(&mc, Cm, L, Bsz, st[8], st[9]);
-  if (r != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(r);
-  return launch_scan<false>(mx, mb, mc, a, y, state_out, init_state, Bsz, L,
-                            H, st, static_cast<cudaStream_t>(stream));
+  return Q_ == 128
+             ? run_scan<128, false>(x, a, Bm, Cm, y, state_out, init_state,
+                                    Bsz, L, H, st, stream)
+             : run_scan<64, false>(x, a, Bm, Cm, y, state_out, init_state,
+                                   Bsz, L, H, st, stream);
+}
+
+// How many CTAs of an instance (Q_ 128 or 64, split 0 or 1, from_state 0
+// or 1) fit on one SM of the current device, after its set-up; or minus
+// a CUDA error code.
+extern "C" int ssd_scan_wgmma_ctas_per_sm(int Q_, int split,
+                                          int from_state) {
+  static const CtasFn table[2][2][2] = {
+      {{ctas_per_sm<64, false, false>, ctas_per_sm<64, true, false>},
+       {ctas_per_sm<64, false, true>, ctas_per_sm<64, true, true>}},
+      {{ctas_per_sm<128, false, false>, ctas_per_sm<128, true, false>},
+       {ctas_per_sm<128, false, true>, ctas_per_sm<128, true, true>}}};
+  if (Q_ != 64 && Q_ != 128) return -static_cast<int>(cudaErrorInvalidValue);
+  return table[Q_ == 128][split != 0][from_state != 0]();
 }
 
 // The split instance's pre-pass: B and C (bc_dtype 0 f32 or 2 f16, [Bsz,
@@ -743,13 +948,12 @@ extern "C" int ssd_scan_split_launch(const void* x, const void* a,
                                      int Bsz, int L, int H, int P_, int N_,
                                      int Q_, const long long* st,
                                      void* stream) {
-  if ((bc_dtype != 0 && bc_dtype != 2) || P_ != P || N_ != N || Q_ != Q ||
-      L < 1)
+  if ((bc_dtype != 0 && bc_dtype != 2) || P_ != P || N_ != N || L < 1 ||
+      !(Q_ == 128 || (Q_ == 64 && L <= 64)))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mx, mb;
-  CUresult r = encode_x(&mx, x, L, H, Bsz, st);
-  if (r == CUDA_SUCCESS) r = encode_bc(&mb, Bm, L, 4 * Bsz, st[6], st[7]);
-  if (r != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(r);
-  return launch_scan<true>(mx, mb, mb, a, y, state_out, init_state, Bsz, L,
-                           H, st, static_cast<cudaStream_t>(stream));
+  return Q_ == 128
+             ? run_scan<128, true>(x, a, Bm, Cm, y, state_out, init_state,
+                                   Bsz, L, H, st, stream)
+             : run_scan<64, true>(x, a, Bm, Cm, y, state_out, init_state,
+                                  Bsz, L, H, st, stream);
 }

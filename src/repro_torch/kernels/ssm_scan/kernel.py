@@ -6,10 +6,12 @@ library built with ``nvcc`` at first use into ``build/kernels/`` and
 bound through ``ctypes``:
 
 - ``csrc/ssd_scan_wgmma.cu`` at P = N = 64 and a configured chunk of 128
-  steps, for any L (a sequence shorter than a chunk is one padded chunk):
-  TMA-fed ``wgmma`` tiles on the bf16 tensor cores, with every fp32
-  operand split into bf16 hi/lo parts, in two instances: "wgmma" for bf16
-  B/C, "wgmma_split" for f32 or f16 B/C (split too, by a pre-pass);
+  steps, for any L: TMA-fed ``wgmma`` tiles on the bf16 tensor cores,
+  with every fp32 operand split into bf16 hi/lo parts, in two instances:
+  "wgmma" for bf16 B/C, "wgmma_split" for f32 or f16 B/C (split too, by a
+  pre-pass); each at two chunk tiles: 128 steps for L > 64, and for
+  1 <= L <= 64 the short kernel's one chunk padded to 64 steps
+  ("wgmma_short", "wgmma_split_short");
 - ``csrc/ssd_scan.cu`` ("simt") takes everything else the op accepts
   (P or N under 64, a configured chunk under 128): fp32 products on the
   CUDA cores.
@@ -25,6 +27,7 @@ state ``[B, H, P, N]`` fp32, or from zero.  The plain version is
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from pathlib import Path
 from typing import Optional, Tuple
@@ -41,7 +44,10 @@ MAX_CHUNK, MAX_P, MAX_N = 128, 64, 64
 WGMMA_P, WGMMA_N, WGMMA_CHUNK = 64, 64, 128
 WGMMA_BC_DTYPE = torch.bfloat16
 WGMMA_SPLIT_BC_DTYPES = (torch.float32, torch.float16)
-VARIANTS = ("wgmma", "wgmma_split", "simt")
+#: the short kernel's chunk tile: it takes every L up to it
+SHORT_TILE = 64
+VARIANTS = ("wgmma", "wgmma_split", "wgmma_short", "wgmma_split_short",
+            "simt")
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: each launcher's arguments (p: pointer, i: int): the scans', and the
 #: split instance's pre-pass
@@ -65,20 +71,23 @@ LIBRARY = CudaLibrary(_CSRC / "ssd_scan.cu",
 WGMMA_LIBRARY = CudaLibrary(_CSRC / "ssd_scan_wgmma.cu",
                             _binder(ssd_scan_wgmma_launch=_SCAN_ARGS,
                                     ssd_scan_split_launch=_SCAN_ARGS,
-                                    ssd_scan_split_bc_launch=_SPLIT_BC_ARGS),
+                                    ssd_scan_split_bc_launch=_SPLIT_BC_ARGS,
+                                    ssd_scan_wgmma_ctas_per_sm="iii"),
                             extra_flags=("-lcuda",))
 
 
-def variant(bc_dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
-    """Which kernel runs a call: at P = N = 64 with a configured chunk of
-    128 steps (for any L: a shorter sequence is one padded chunk),
-    ``"wgmma"`` for bf16 B/C and ``"wgmma_split"`` for f32 or f16 B/C;
-    ``"simt"`` otherwise."""
+def variant(bc_dtype: torch.dtype, P: int, N: int, chunk: int,
+            L: int) -> str:
+    """Which kernel runs a call of ``L`` steps: at P = N = 64 with a
+    configured chunk of 128 steps, ``"wgmma"`` for bf16 B/C and
+    ``"wgmma_split"`` for f32 or f16 B/C, with the suffix ``"_short"``
+    (the 64-step tile) when ``L <= SHORT_TILE``; ``"simt"`` otherwise."""
     if P == WGMMA_P and N == WGMMA_N and chunk == WGMMA_CHUNK:
+        short = "_short" if L <= SHORT_TILE else ""
         if bc_dtype == WGMMA_BC_DTYPE:
-            return "wgmma"
+            return "wgmma" + short
         if bc_dtype in WGMMA_SPLIT_BC_DTYPES:
-            return "wgmma_split"
+            return "wgmma_split" + short
     return "simt"
 
 
@@ -113,17 +122,25 @@ def _check(x, a, Bm, Cm, chunk, init_state=None
     return code, Bsz, L, H, P, N, Q
 
 
+def _on_device(dev: torch.device):
+    """``dev`` made the current device for a launch, unless it is."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def _launch(lib: CudaLibrary, name: str, x, a, Bm, Cm, init_state, strides,
             code, Bsz, L, H, P, N, Q) -> Tuple[torch.Tensor, torch.Tensor]:
-    y = torch.empty((Bsz, L, H, P), dtype=torch.float32, device=x.device)
-    state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    dev = x.device
+    y = torch.empty((Bsz, L, H, P), dtype=torch.float32, device=dev)
+    state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
     init = None if init_state is None else init_state.contiguous()
     if init is not None and init.data_ptr() % 8:    # the kernels read pairs
         init = init.clone()
-    st = (ctypes.c_longlong * 13)(*strides, *y.stride()[:3])
+    st = (ctypes.c_longlong * 13)(*strides, L * H * P, H * P, P)
     fn = getattr(lib.get(), name)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                  code, y.data_ptr(), state.data_ptr(),
                  None if init is None else init.data_ptr(), Bsz, L, H, P, N, Q,
@@ -151,18 +168,20 @@ def ssd_scan_simt(x, a, Bm, Cm, chunk: int, init_state=None
     return out
 
 
-def split_bc(Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+def split_bc(Bm: torch.Tensor, Cm: torch.Tensor,
+             strides: Tuple[int, ...]) -> torch.Tensor:
     """The split instance's pre-pass: f32 or f16 ``Bm, Cm [B, L, 64]`` on
-    the card (as :func:`tma_strides` reads them) into bf16 planes ``[4, B,
-    L, 64]``: B hi, B lo, C hi, C lo (hi = bf16(v), lo = bf16(v - hi)).
-    Counts no launch of its own: it is part of ``"wgmma_split"``."""
+    the card, as TMA reads them (``strides``: their :func:`tma_strides`,
+    B's then C's), into bf16 planes ``[4, B, L, 64]``: B hi, B lo, C hi,
+    C lo (hi = bf16(v), lo = bf16(v - hi)).  Counts no launch of its own:
+    it is part of the split variants."""
     code = _BC_CODES[Bm.dtype]
     Bsz, L, N = Bm.shape
     planes = torch.empty((4, Bsz, L, N), dtype=torch.bfloat16,
                          device=Bm.device)
-    st = (ctypes.c_longlong * 4)(*tma_strides(Bm), *tma_strides(Cm))
+    st = (ctypes.c_longlong * 4)(*strides)
     fn = WGMMA_LIBRARY.get().ssd_scan_split_bc_launch
-    with torch.cuda.device(Bm.device):
+    with _on_device(Bm.device):
         stream = torch.cuda.current_stream(Bm.device).cuda_stream
         err = fn(Bm.data_ptr(), Cm.data_ptr(), code, Bsz, L,
                  ctypes.addressof(st), planes.data_ptr(), stream)
@@ -170,35 +189,65 @@ def split_bc(Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
     return planes
 
 
-def ssd_scan_wgmma(x, a, Bm, Cm, chunk: int, init_state=None
+def _tma_ready(t: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """``t`` as TMA can read it (copied when it cannot as it lies), with
+    its :func:`tma_strides`."""
+    st = tma_strides(t)
+    if st is None:
+        t = t.contiguous()
+        st = tma_strides(t)
+    return t, st
+
+
+def ssd_scan_wgmma(x, a, Bm, Cm, chunk: int, init_state=None,
+                   tile: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/ssd_scan_wgmma.cu`` (P = N = 64, a configured chunk of
     128, any L): its bf16 instance for bf16 B/C, its split instance for
-    f32 or f16 B/C (:func:`split_bc`, then the scan on the planes).  An
-    x, B or C that TMA (or the pre-pass's 16-byte loads) cannot read as
-    it lies (:func:`tma_strides`) is copied first.  Bumps
-    ``ssd_scan_cuda.launches`` and the count of the instance's variant,
-    ``"wgmma"`` or ``"wgmma_split"``."""
+    f32 or f16 B/C (:func:`split_bc`, then the scan on the planes), at the
+    chunk tile ``tile``: 128 (any L) or 64 (L <= 64); None takes
+    :func:`variant`'s (64 for L <= 64).  An x, B or C that TMA (or the
+    pre-pass's 16-byte loads) cannot read as it lies (:func:`tma_strides`)
+    is copied first.  Bumps ``ssd_scan_cuda.launches`` and the count of
+    the variant that ran: ``"wgmma"`` or ``"wgmma_split"``, with
+    ``"_short"`` at the 64-step tile."""
     code, Bsz, L, H, P, N, _ = _check(x, a, Bm, Cm, chunk, init_state)
-    name = variant(Bm.dtype, P, N, int(chunk))
+    name = variant(Bm.dtype, P, N, int(chunk), L)
     if name == "simt":
         raise ValueError(f"the wgmma kernel takes P = N = {WGMMA_P} at a "
                          f"configured chunk of {WGMMA_CHUNK}, got "
                          f"{Bm.dtype}, P={P}, N={N}, chunk {chunk}")
-    x, Bm, Cm = (t if tma_strides(t) else t.contiguous()
-                 for t in (x, Bm, Cm))
-    launcher, bc = "ssd_scan_wgmma_launch", (*tma_strides(Bm),
-                                            *tma_strides(Cm))
-    if name == "wgmma_split":
+    if tile is None:
+        tile = SHORT_TILE if L <= SHORT_TILE else WGMMA_CHUNK
+    if tile not in (SHORT_TILE, WGMMA_CHUNK) or (tile == SHORT_TILE
+                                                 and L > SHORT_TILE):
+        raise ValueError(f"chunk tile {tile} at L {L}: the wgmma kernel "
+                         f"takes {WGMMA_CHUNK} for any L, {SHORT_TILE} for "
+                         f"L <= {SHORT_TILE}")
+    name = name.removesuffix("_short") + ("_short" if tile == SHORT_TILE
+                                          else "")
+    x, xs = _tma_ready(x)
+    Bm, bs = _tma_ready(Bm)
+    Cm, cs = _tma_ready(Cm)
+    launcher, bc = "ssd_scan_wgmma_launch", (*bs, *cs)
+    if name.startswith("wgmma_split"):
         # the planes [4, B, L, N] are read as 4 B batches of rows, so their
         # own batch stride, never a size-1 batch's stand-in
-        Bm = Cm = split_bc(Bm, Cm)
+        Bm = Cm = split_bc(Bm, Cm, bc)
         launcher, bc = "ssd_scan_split_launch", Bm.stride()[1:3] * 2
-    strides = (*tma_strides(x), *a.stride(), *bc)
     out = _launch(WGMMA_LIBRARY, launcher, x, a, Bm, Cm, init_state,
-                  strides, code, Bsz, L, H, P, N, WGMMA_CHUNK)
+                  (*xs, *a.stride(), *bc), code, Bsz, L, H, P, N, tile)
     _count(name)
     return out
+
+
+def ctas_per_sm(tile: int, split: bool, from_state: bool = False) -> int:
+    """How many CTAs of the wgmma kernel's instance at ``tile`` (128 or
+    64) fit on one SM of the current device (builds and sets it up)."""
+    n = WGMMA_LIBRARY.get().ssd_scan_wgmma_ctas_per_sm(
+        tile, int(split), int(from_state))
+    check_launch(max(0, -n), "ssd_scan (occupancy query)")
+    return n
 
 
 def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
@@ -213,15 +262,15 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     float32 on that device, or None for zero.  Returns
     ``(y [B, L, H, P], final_state [B, H, P, N])``, fp32 and contiguous:
     the reference's scan at chunks of ``min(chunk, L)`` steps (``chunk``
-    is the configured chunk; the wgmma kernel runs a shorter sequence as
-    one padded chunk, which differs only in rounding).  Raises
+    is the configured chunk; the wgmma kernel runs a sequence of up to 64
+    steps as one chunk padded to 64, which differs only in rounding).  Raises
     on anything else, and when the build or the launch fails.
     ``ssd_scan_cuda.launches`` counts every launch,
     ``ssd_scan_cuda.by_variant`` each kernel's."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
-    if variant(Bm.dtype, int(x.shape[-1]), int(Bm.shape[-1]),
-               int(chunk)) != "simt":
+    if variant(Bm.dtype, int(x.shape[-1]), int(Bm.shape[-1]), int(chunk),
+               int(x.shape[1])) != "simt":
         return ssd_scan_wgmma(x, a, Bm, Cm, chunk, init_state)
     return ssd_scan_simt(x, a, Bm, Cm, chunk, init_state)
 

@@ -4,7 +4,8 @@ Port of ``src/repro/kernels/ssm_scan/ops.py``.  On CPU tensors it runs the
 plain chunked scan (``ref.ssd_chunked_ref``), which autograd
 differentiates.  On CUDA tensors it runs :class:`SSDScan`, an
 ``autograd.Function`` whose forward is the CUDA kernel that
-``kernel.variant`` picks and whose backward recomputes the plain scan and
+``kernel.variant`` picks (called directly, without the Function, when no
+input needs a gradient) and whose backward recomputes the plain scan and
 differentiates it (the reference has no backward kernel: its models
 differentiate the XLA form of the same scan).  A kernel that fails
 raises; nothing falls back to the plain forward.  Both start from the
@@ -85,4 +86,8 @@ def ssd_scan(
         return ssd_chunked_ref(x, a, Bm, Cm, min(chunk, x.shape[1]),
                                init_state)
     require_local(x, a, Bm, Cm, init_state)
-    return SSDScan.apply(x, a, Bm, Cm, chunk, init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, a, Bm, Cm, init_state)):
+        return SSDScan.apply(x, a, Bm, Cm, chunk, init_state)
+    return FORWARD(x, a, Bm, Cm, chunk, init_state)   # nothing to save

@@ -8,6 +8,7 @@
   config (the reference's ``TestProbeCorrection``);
 - ``RankCounter``'s per-rank FLOPs, bytes and wire bytes on a small
   ``fake`` mesh against counts made by hand;
+- rwkv6-3b's reduced train cell on a fake mesh with a ``pod`` axis;
 - a dense production cell's ``useful_flops_ratio`` within the band that
   one rank's share of the work allows (no op replicated across ranks);
 - the dry run's records under ``artifacts/dryrun_torch/`` (skipped when
@@ -288,6 +289,31 @@ def test_rank_counts_match_hand_counts():
     reduced, cross = out["reduce"]
     assert reduced == {"all_reduce": 4 * 2.0}  # one fp32 scalar, ring 2
     assert cross == 8.0                        # data group {0, 8}
+
+
+def test_rwkv_train_cell_runs_on_a_mesh_with_a_pod_axis():
+    """rwkv6-3b's reduced train cell through ``CellBuilder`` on a
+    ``(pod 2, data 1, model 2)`` fake mesh, batch 2 of 4 tokens: the
+    smallest cell that meets the batch flattened over (pod, data) while
+    the model axis splits the tokens.  Without the batch-only constraint
+    on the token-shift mix (``models/rwkv.py::_ddlerp``) its step fails:
+    "Sharding propagation failed for aten.mm.default"."""
+    out = run_snippet("""
+        import json
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.configs import get_config
+        from repro_torch.launch.dryrun import compile_cell
+        from repro_torch.launch.mesh import fake_process_group
+        from repro_torch.launch.shapes import ShapeSpec
+        fake_process_group(4)
+        mesh = init_device_mesh("cpu", (2, 1, 2),
+                                mesh_dim_names=("pod", "data", "model"))
+        rec = compile_cell(get_config("rwkv6_3b", reduced=True),
+                           ShapeSpec("pod_train", 4, 2, "train"), mesh,
+                           "train")
+        print(json.dumps({"flops": rec["flops"]}))
+    """, timeout=300)
+    assert out["flops"] > 0
 
 
 def test_dense_cell_counts_one_ranks_share_of_the_model():

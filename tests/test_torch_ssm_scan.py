@@ -165,30 +165,36 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 @pytest.mark.parametrize("P", [16, 32, 64])
 @pytest.mark.parametrize("N", [16, 32, 64])
 @pytest.mark.parametrize("Q", [16, 64, 100, 128])
-def test_dispatch_rule(dtype, P, N, Q):
-    """At P = N = 64 with a configured chunk of 128 (for any L) bf16 B/C
-    take the wgmma kernel's bf16 instance and f32/f16 B/C its split
-    instance; narrower dims and chunks keep the simt kernel."""
+@pytest.mark.parametrize("L", [1, 12, 64, 65, 2048])
+def test_dispatch_rule(dtype, P, N, Q, L):
+    """At P = N = 64 with a configured chunk of 128 bf16 B/C take the
+    wgmma kernel's bf16 instance and f32/f16 B/C its split instance, at
+    the 64-step tile (``"_short"``) for L <= 64 and the 128-step tile
+    above; narrower dims and chunks keep the simt kernel at any L."""
     if P == N == 64 and Q == 128:
-        want = "wgmma" if dtype == BF16 else "wgmma_split"
+        want = (("wgmma" if dtype == BF16 else "wgmma_split")
+                + ("_short" if L <= 64 else ""))
     else:
         want = "simt"
-    assert K3.variant(dtype, P, N, Q) == want
+    assert K3.variant(dtype, P, N, Q, L) == want
 
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_every_ssm_config_in_its_compute_dtype(reduced):
     """zamba2-1.2b at full size serves on the wgmma kernel at any prompt
-    length (bf16 compute, P = N = 64, configured chunk 128), and its fp32
-    runs on the split instance; its reduced config (f32, P = N = 16,
-    chunk 16) on the simt kernel.  The dispatch reads the configured
-    chunk, never ``min(chunk, L)``."""
+    length (bf16 compute, P = N = 64, configured chunk 128: the 64-step
+    tile for the serving launcher's 12 tokens, the 128-step one for
+    2048), and its fp32 runs on the split instance; its reduced config
+    (f32, P = N = 16, chunk 16) on the simt kernel.  The dispatch reads
+    the configured chunk, never ``min(chunk, L)``."""
     ssm = {name: cfg for name, cfg in all_configs(reduced).items()
            if cfg.ssm is not None and "ssm" in cfg.layer_kinds()}
     got = {name: {K3.variant(dt, cfg.ssm.head_dim, cfg.ssm.d_state,
-                             cfg.ssm.chunk) for dt in (cfg.dtype, F32)}
+                             cfg.ssm.chunk, L)
+                  for dt in (cfg.dtype, F32) for L in (12, 2048)}
            for name, cfg in ssm.items()}
-    want = {"simt"} if reduced else {"wgmma", "wgmma_split"}
+    want = {"simt"} if reduced else {"wgmma", "wgmma_split", "wgmma_short",
+                                     "wgmma_split_short"}
     assert got == {"zamba2_1p2b": want}
 
 
@@ -274,8 +280,9 @@ def test_reset_counts():
     K3.ssd_scan_cuda.by_variant["wgmma"] = 3
     K3.reset_counts()
     assert K3.ssd_scan_cuda.launches == 0
-    assert K3.ssd_scan_cuda.by_variant == {"wgmma": 0, "wgmma_split": 0,
-                                           "simt": 0}
+    assert K3.ssd_scan_cuda.by_variant == {
+        "wgmma": 0, "wgmma_split": 0, "wgmma_short": 0,
+        "wgmma_split_short": 0, "simt": 0}
 
 
 # ---- the wgmma kernel's precision contract, emulated on the CPU ----------
@@ -356,6 +363,7 @@ def _as_bf16_values(t):
     return t.astype(np.float32).view(np.uint32) & np.uint32(0xFFFF0000)
 
 
+@pytest.mark.parametrize("tile", [64, 128])
 @pytest.mark.parametrize("B,L,H,P,N,chunk,bc_bf16,lo", [
     # tests/test_kernels.py's SSD cases, B/C in fp32 (all split)
     (1, 64, 1, 16, 16, 16, False, 0.7),
@@ -367,12 +375,18 @@ def _as_bf16_values(t):
     # the wgmma kernel's own case: bf16-valued B/C at P = N = 64, Q = 128
     (2, 512, 2, 64, 64, 128, True, 0.7),
     (1, 300, 2, 64, 64, 128, True, 0.7),    # ragged tail chunk
+    # shorter than one chunk: the short kernel's one padded chunk
+    (2, 12, 2, 64, 64, 128, True, 0.7),
+    (1, 64, 2, 64, 64, 128, False, 0.7),
 ])
-def test_split_precision_contract_meets_the_reference(B, L, H, P, N, chunk,
-                                                      bc_bf16, lo):
+def test_split_precision_contract_meets_the_reference(tile, B, L, H, P, N,
+                                                      chunk, bc_bf16, lo):
     """The hi/lo bf16 scheme of ``ssd_scan_wgmma.cu``, emulated in plain
-    PyTorch, agrees with the reference's ``ssd_scan`` (Pallas interpret
-    mode and the sequential recurrence) within 1e-4."""
+    PyTorch at chunks of ``min(chunk, tile)`` steps (the 128-step tile and
+    the short kernel's 64-step tile; a sequence shorter than that is one
+    padded chunk), agrees with the reference's ``ssd_scan`` (Pallas
+    interpret mode and the sequential recurrence, at chunks of
+    ``min(chunk, L)``) within 1e-4."""
     if lo is None:
         arrays = (np.ones((B, L, H, P), np.float32),
                   np.full((B, L, H), 0.5, np.float32),
@@ -384,11 +398,11 @@ def test_split_precision_contract_meets_the_reference(B, L, H, P, N, chunk,
         arrays = arrays[:2] + tuple(_as_bf16_values(t).view(np.float32)
                                     for t in arrays[2:])
     y, s = split_precision_scan(*(torch.from_numpy(t) for t in arrays),
-                                chunk, bc_bf16)
+                                min(chunk, tile), bc_bf16)
     assert y.shape == (B, L, H, P) and s.shape == (B, H, P, N)
     j = [jnp.asarray(t) for t in arrays]
     for impl in ("pallas", "ref"):
-        yr, sr = ref_scan(*j, chunk=chunk, impl=impl)
+        yr, sr = ref_scan(*j, chunk=min(chunk, L), impl=impl)
         np.testing.assert_allclose(y.numpy(), np.asarray(yr), rtol=TOL,
                                    atol=TOL)
         np.testing.assert_allclose(s.numpy(), np.asarray(sr), rtol=TOL,
@@ -494,6 +508,44 @@ def test_one_padded_chunk_meets_the_reference_at_q_equal_l(L, from_state,
                                    atol=TOL)
 
 
+def pad_steps(arrays, steps):
+    """x, a, B, C (numpy) padded along L to ``steps`` with a = 1 and
+    x = B = C = 0: the rows TMA's out-of-bounds fill gives the short
+    kernel."""
+    x, a, Bm, Cm = arrays
+    pad = steps - x.shape[1]
+    return (np.pad(x, ((0, 0), (0, pad), (0, 0), (0, 0))),
+            np.pad(a, ((0, 0), (0, pad), (0, 0)), constant_values=1.0),
+            np.pad(Bm, ((0, 0), (0, pad), (0, 0))),
+            np.pad(Cm, ((0, 0), (0, pad), (0, 0))))
+
+
+@pytest.mark.parametrize("L", [1, 12, 63, 64])
+@pytest.mark.parametrize("from_state", [False, True])
+def test_the_64_step_padded_chunk_meets_the_reference_at_q_equal_l(
+        L, from_state):
+    """The short kernel's arithmetic in plain PyTorch: the inputs padded
+    to 64 steps (a = 1, x = B = C = 0), the port's ``ssd_chunked_ref`` at
+    a chunk of 64, the first L steps of y kept; y and the final state
+    agree with the reference's ``ssd_chunked_ref`` at Q = L, from zero
+    and from a state, within 1e-4 of max(1, max |y|, max |S|)."""
+    B, H, P, N = 2, 3, 64, 64
+    arrays = inputs(B, L, H, P, N, seed=100 + L + from_state)
+    s0 = (np.random.default_rng(L + 7).normal(size=(B, H, P, N)).astype(
+        np.float32) if from_state else None)
+    init = None if s0 is None else torch.from_numpy(s0)
+    y, s = ssd_chunked_ref(*(torch.from_numpy(t)
+                             for t in pad_steps(arrays, 64)), 64, init)
+    y = y[:, :L]
+    yr, sr = ref_chunked(*(jnp.asarray(t) for t in arrays), L,
+                         None if s0 is None else jnp.asarray(s0))
+    yr, sr = np.asarray(yr), np.asarray(sr)
+    scale = max(1.0, float(np.abs(yr).max()), float(np.abs(sr).max()))
+    assert y.shape == (B, L, H, P) and s.shape == (B, H, P, N)
+    assert float(np.abs(y.numpy() - yr).max()) <= TOL * scale
+    assert float(np.abs(s.numpy() - sr).max()) <= TOL * scale
+
+
 @pytest.mark.parametrize("B", [1, 3])
 def test_split_launch_reads_the_planes_with_their_own_strides(monkeypatch,
                                                               B):
@@ -510,7 +562,7 @@ def test_split_launch_reads_the_planes_with_their_own_strides(monkeypatch,
         return None, None
 
     monkeypatch.setattr(K3, "_check", lambda *args: (0, B, L, H, 64, N, L))
-    monkeypatch.setattr(K3, "split_bc", lambda Bm, Cm: torch.zeros(
+    monkeypatch.setattr(K3, "split_bc", lambda Bm, Cm, strides: torch.zeros(
         4, B, L, N, dtype=BF16))
     monkeypatch.setattr(K3, "_launch", fake_launch)
     monkeypatch.setattr(K3, "_count", lambda name: None)
