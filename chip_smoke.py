@@ -5,15 +5,14 @@
     python3 chip_smoke.py --k3-short    # K3 alone: build, sweeps, timings
 
 1. Prints the card's name and power limit.
-2. Builds the five CUDA libraries side by side (one nvcc each, sm_90a):
+2. Builds the three CUDA libraries side by side (one nvcc each, sm_90a):
    K1 fused fold (register-path kernels for G <= 8, a shared-memory one
-   for larger G), K2 flash attention in its three variants (at head dims
-   64 and 128 ``wgmma`` for bf16/f16 and ``wgmma_f32`` for f32, the
-   split-precision instance; ``simt`` for head dims 16 and 32), K3 SSD
-   scan in its five variants (at P = N = 64 and a configured chunk of
-   128, ``wgmma`` for bf16 B/C and ``wgmma_split`` for f32/f16 B/C, and
-   below 65 steps the short kernel's 64-step tile, ``wgmma_short`` and
-   ``wgmma_split_short``; ``simt`` for the narrower dims and chunks),
+   for larger G), K2 flash attention in its two variants (at head dims
+   16, 32, 64 and 128 ``wgmma`` for bf16/f16 and ``wgmma_f32`` for f32,
+   the split-precision instance), K3 SSD scan in its four variants (at
+   any P, N <= 64 and any configured chunk, ``wgmma`` for bf16 B/C and
+   ``wgmma_split`` for f32/f16 B/C, and below 65 steps the short
+   kernel's 64-step tile, ``wgmma_short`` and ``wgmma_split_short``),
    logs each kernel's registers and spills, and how many CTAs of each K3
    wgmma tile fit an SM (the short kernel must fit two).
 3. Holds K1 against its plain PyTorch version and the float64 NumPy oracle
@@ -29,11 +28,13 @@
    GQA heads at D 128, and phase (i)'s calls in bf16 and f32: mixtral's
    window of 4096 over 6144 tokens, qwen2-vl's 28 over 4 heads, whisper's
    encoder over 1500 frames, its cross-attention and its decoder) and at
-   head dims 16 and 32 (simt), K3 with f32, f16 and bf16 B/C at P = N = 64
+   head dims 16 and 32 in f32, bf16 and f16 (the reduced configs' calls,
+   and B 8, H 32, S 2048), K3 with f32, f16 and bf16 B/C at P = N = 64
    (incl. L = 1, 12, 64 on the short kernel, with the 128-step tile called
    directly beside it from a state, and L = 100, shorter than a chunk) and
-   at the narrower dims and chunks (simt), from a zero and from a random
-   initial state, checking which variant ran.  Then one Mamba2 layer of
+   at the narrower dims and chunks (P = N = 16 at a configured chunk of
+   16 for L from 1 to 2048, dims the wrapper pads), from a zero and from
+   a random initial state, checking which variant ran.  Then one Mamba2 layer of
    zamba2-1.2b at full width runs ``ssm_full`` over the serving prompt and
    over its two halves, the second from the first's returned state, in bf16
    (wgmma) and fp32 (wgmma_split): the chained scans must equal one scan
@@ -65,14 +66,15 @@
    wrapper, by variant and by the profiler's kernel names, and holds the
    prefill and every decode step's logits against the same model run with
    the kernels' plain versions on the same token stream (bf16 activations:
-   the wgmma variants of K2 and K3; fp32: wgmma_f32 and wgmma_split, with
-   no simt launch).  A 12-token prefill (the serving launcher's default
-   prompt, shorter than one chunk) through the same engine in bf16 takes
+   the wgmma variants of K2 and K3; fp32: wgmma_f32 and wgmma_split).  A
+   12-token prefill (the serving launcher's default prompt, shorter than
+   one chunk) through the same engine in bf16 takes
    K3's short kernel (``wgmma_short``) 32 times and no other K3 variant,
    and its logits and those of an fp32 12-token prefill
    (``wgmma_split_short``, 32) are held to the plain kernels'.
-   zamba2-1.2b's reduced config (head dims 16, chunk 16, fp32) serves
-   through its own engine: the path of the simt kernels.
+   zamba2-1.2b's reduced config (head dims 16, SSM P = N = 16, chunk
+   16, fp32) serves through its own engine: K2's wgmma_f32 and K3's
+   wgmma_split_short once a layer, logits held to the plain kernels'.
    (i) Then serves the other families at full width, each freed from the
    card before the next: mixtral-8x7b (8 of 32 layers, bf16 parameters;
    4 x 6144 prompt tokens, past its 4096-token window, 32 new),
@@ -120,18 +122,21 @@
    256 fake ranks and one rank's counts at phase (j)'s shape, in
    subprocesses, and MFU of phase (j)'s step, all labelled "(dry-run,
    H100 constants)".
-7. Times K2's wgmma and simt kernels, SDPA and the plain version in
-   turns at the serving call (and in fp32 the wgmma_f32 instance, the
-   simt kernel, SDPA and the plain version) and at qwen3-8b's D=128 GQA
-   shape (and there in fp32 wgmma_f32, SDPA and the plain version), and
-   K3's kernels and the plain version in turns at its serving call (bf16
-   B/C; f32 B/C for wgmma_split) and below one chunk, at L = 1, 12 and 64
-   with B 8 and B 4 and bf16 and f32 B/C (the short kernel, the 128-step
-   tile called directly, the simt kernel), each with its loop time, its
-   device time from the profiler and its host time a call (the wrapper,
-   and the C launchers inside it), and its distance to a float64 run of
-   the plain version; K3 is timed right after the sweeps, in a process of
-   its own (``--k3-measure``), whose profiler keeps every kernel record.
+7. Times K2's wgmma kernel, SDPA and the plain version in turns at the
+   serving call, at qwen3-8b's D=128 GQA shape and at the reduced
+   configs' head dims 16 and 32 (B 8, H 32, S 2048), each in bf16 and in
+   fp32 (the wgmma_f32 instance), by loop time and, at D 16 and 32, the
+   profiler's device time too; and K3's kernels and the plain version in
+   turns at its serving call (bf16 B/C; f32 B/C for wgmma_split), below
+   one chunk, at L = 1, 12 and 64 with B 8 and B 4 and bf16 and f32 B/C
+   (the short kernel, the 128-step tile called directly), and at the
+   reduced config's dims (P = N = 16, a configured chunk of 16, L 2048
+   and 12 at B 8, bf16 and f32 B/C), each with its loop time, its device
+   time from the profiler and its host time a call (the wrapper, and the
+   C launchers inside it), and its distance to a float64 run of the plain
+   version; K3 and K2's device-timed calls are timed right after the
+   sweeps, in a process of its own (``--measure-apart``), whose profiler
+   keeps every kernel record.
 8. Prints one JSON line of kernel measurements, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -464,11 +469,13 @@ K2_BASE_CASES = [
     (2, 4, 2, 96, 96, 64, True, 64, BF16),
     (8, 32, 32, 2048, 2048, 64, True, 0, BF16),
 ]
-#: every geometry above but the serving shape, in bf16 and f16 at head
-#: dims 64 and 128 (the wgmma variant) and in f32 there (wgmma_f32), then
-#: qwen3-8b's GQA heads at the serving batch and prompt: 32 query heads
-#: over 8 KV heads of 128; then phase (i)'s calls in bf16 and f32; then
-#: every geometry at head dims 16 and 32 in f32 and bf16 (simt)
+#: every geometry above but the serving shape, in bf16 and f16 (the wgmma
+#: variant) and in f32 (wgmma_f32) at head dims 64 and 128, then qwen3-8b's
+#: GQA heads at the serving batch and prompt: 32 query heads over 8 KV
+#: heads of 128; then phase (i)'s calls in bf16 and f32; then every
+#: geometry at head dims 16 and 32 in f32, bf16 and f16; then the reduced
+#: zamba2 config's call (B 8, 4 heads of 16 over 64 tokens, fp32) and the
+#: timed narrow calls (B 8, H 32, S 2048, D 16 and 32) in bf16 and f32
 K2_GEOMETRIES = list(dict.fromkeys(
     (B, H, Hkv, Sq, Skv, causal, window)
     for B, H, Hkv, Sq, Skv, _, causal, window, _ in K2_BASE_CASES[:-1]))
@@ -492,7 +499,10 @@ K2_CASES = list(dict.fromkeys(K2_BASE_CASES + [
 ] + [
     (B, H, Hkv, Sq, Skv, D, causal, window, dt)
     for B, H, Hkv, Sq, Skv, causal, window in K2_GEOMETRIES
-    for dt in (F32, BF16) for D in (16, 32)
+    for dt in (F32, BF16, F16) for D in (16, 32)
+] + [(8, 4, 4, 64, 64, 16, True, 0, F32)] + [
+    (8, 32, 32, 2048, 2048, D, True, 0, dt)
+    for D in (16, 32) for dt in (BF16, F32)
 ]))
 #: f32 at the reference tests' 2e-5, scaled by 5 for the card's exp and
 #: summation order; bf16 outputs at the reference's 2e-2, which also
@@ -529,13 +539,15 @@ def k2_sweep(gen):
 
 #: (B, L, H, P, N, chunk, B/C dtype, decay low end): tests/test_kernels.py's
 #: SSD cases (incl. L=100 padding), chunk invariance, the long strong-decay
-#: case (x = 1, a = 0.5), with f32 B/C at the narrower dims (simt) and at
-#: P = N = 64 (wgmma_split); at P = N = 64 and a configured chunk of 64
-#: (simt); then each B/C dtype at P = N = 64 and chunk 128 (bf16: wgmma,
-#: f32/f16: wgmma_split): one chunk, a ragged L = 300, the long-decay case,
-#: sequences shorter than one chunk (L = 1, 12, 64: the short kernel's one
-#: chunk padded to 64, wgmma_short / wgmma_split_short; L = 100: one chunk
-#: padded to 128) and the serving shape
+#: case (x = 1, a = 0.5), with f32 B/C at the narrower dims and at P = N =
+#: 64; at P = N = 64 and a configured chunk of 64; then each B/C dtype at
+#: P = N = 64 and chunk 128 (bf16: wgmma, f32/f16: wgmma_split): one
+#: chunk, a ragged L = 300, the long-decay case, sequences shorter than
+#: one chunk (L = 1, 12, 64: the short kernel's one chunk padded to 64,
+#: wgmma_short / wgmma_split_short; L = 100: one chunk padded to 128) and
+#: the serving shape; then each B/C dtype at the reduced config's dims (P
+#: = N = 16, chunk 16) for L from 1 to 2048 (its own call: B 8, L 64, 8
+#: heads), and dims the wrapper zero-pads to multiples of 8 (P 12, N 20)
 K3_CASES = [
     (1, 64, 1, 16, 16, 16, F32, 0.7),
     (2, 128, 2, 32, 16, 64, F32, 0.7),
@@ -556,6 +568,17 @@ K3_CASES = [
         (2, 64, 3, 64, 64, 128, dt, 0.7),
         (2, 100, 3, 64, 64, 128, dt, 0.7),
         (8, 2048, 64, 64, 64, 128, dt, 0.7),
+    )
+] + [
+    case for dt in (BF16, F32, F16) for case in (
+        (2, 1, 3, 16, 16, 16, dt, 0.7),
+        (2, 12, 3, 16, 16, 16, dt, 0.7),
+        (8, 64, 8, 16, 16, 16, dt, 0.7),
+        (2, 65, 3, 16, 16, 16, dt, 0.7),
+        (2, 200, 3, 16, 16, 16, dt, 0.7),
+        (1, 256, 2, 16, 16, 16, dt, None),
+        (8, 2048, 64, 16, 16, 16, dt, 0.7),
+        (2, 40, 3, 12, 20, 16, dt, 0.7),
     )
 ]
 K3_TOL = 1e-4          # the reference suite's; relative on the serving shape
@@ -580,7 +603,7 @@ def k3_sweep(gen):
     for B, L, H, P, N, chunk, bdt, lo in K3_CASES:
         x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, bdt, lo)
         where = (B, L, H, P, N, chunk, bdt, lo)
-        ran = K3.variant(bdt, P, N, chunk, L)
+        ran = K3.variant(bdt, P, N, L)
         before = K3.ssd_scan_cuda.by_variant[ran]
         y, s = K3.ssd_scan_cuda(x, a, Bm, Cm, chunk)
         check(K3.ssd_scan_cuda.by_variant[ran] == before + 1,
@@ -615,11 +638,12 @@ def k3_sweep(gen):
 
 
 #: K3 from a random initial state: f32 B/C at the narrower dims and at a
-#: chunk of 64 (simt); each B/C dtype at P = N = 64 and chunk 128 (both
-#: kernels: the wgmma instance as serving picks it, the simt kernel
-#: called directly; below 65 steps also the 128-step tile called
+#: chunk of 64; each B/C dtype at P = N = 64 and chunk 128 (the instance
+#: as serving picks it; below 65 steps also the 128-step tile called
 #: directly), incl. a ragged L, L = 1, 12, 64 (the short kernel, bf16 and
-#: f32 B/C), 100 (one padded chunk) and the serving shape
+#: f32 B/C), 100 (one padded chunk) and the serving shape; then bf16 and
+#: f32 B/C at the reduced config's dims (P = N = 16, chunk 16) for L from 1
+#: to 2048, and padded dims (P 12, N 20)
 K3_STATE_CASES = [
     (1, 64, 1, 16, 16, 16, F32),
     (1, 100, 2, 32, 32, 32, F32),
@@ -631,7 +655,11 @@ K3_STATE_CASES = [
         (8, 2048, 64, 64, 64, 128, dt),
     )
 ] + [(2, L, 3, 64, 64, 128, dt) for dt in (BF16, F32)
-      for L in (1, 12, 64, 100)]
+      for L in (1, 12, 64, 100)] + [
+    (B, L, H, 16, 16, 16, dt) for dt in (BF16, F32)
+    for B, L, H in ((2, 1, 3), (2, 12, 3), (8, 64, 8), (2, 65, 3),
+                    (2, 200, 3), (8, 2048, 64))
+] + [(2, 40, 3, 12, 20, 16, dt) for dt in (BF16, F32)]
 
 
 def k3_state_sweep(gen):
@@ -644,13 +672,11 @@ def k3_state_sweep(gen):
         s0 = torch.randn(B, H, P, N, generator=gen, device=DEV)
         yp, sp = ssd_chunked_ref(x, a, Bm, Cm, min(chunk, L), s0)
         scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
-        runs = [("simt", K3.ssd_scan_simt)]
-        ran = K3.variant(bdt, P, N, chunk, L)
-        if ran != "simt":
-            runs.append((ran, K3.ssd_scan_wgmma))
+        ran = K3.variant(bdt, P, N, L)
+        runs = [(ran, K3.ssd_scan_cuda)]
         if ran.endswith("_short"):         # the 128-step tile, directly
             runs.append((ran.removesuffix("_short"),
-                         functools.partial(K3.ssd_scan_wgmma, tile=128)))
+                         functools.partial(K3.ssd_scan_cuda, tile=128)))
         for ran, fn in runs:
             y, s = fn(x, a, Bm, Cm, chunk, init_state=s0)
             torch.cuda.synchronize()
@@ -1611,16 +1637,12 @@ def breakdown(wall, prof):
             cat = "K2"
         elif "flash_wgmma_split_kernel" in name:
             cat = "K2 f32"
-        elif "flash_fwd_kernel" in name:
-            cat = "K2 simt"
         elif "ssd_wgmma_kernel" in name:
             cat = "K3"
         elif "ssd_short_kernel" in name:
             cat = "K3 short"
         elif "split_bc_kernel" in name:
             cat = "K3 pre-pass"
-        elif "ssd_scan_kernel" in name:
-            cat = "K3 simt"
         elif "memcpy" in name or "memset" in name:
             cat = "copy"
         elif any(w in name for w in ("gemm", "cutlass", "xmma", "nvjet",
@@ -1687,8 +1709,7 @@ def serve_path():
     toks = torch.as_tensor(res.tokens, dtype=torch.int64, device=DEV)
     wall, secs, calls, top = device_breakdown(
         lambda: engine.model.prefill(engine.params, pr))
-    check(calls.get("K2") == want["K2"] and calls.get("K3") == want["K3"]
-          and "K2 simt" not in calls and "K3 simt" not in calls,
+    check(calls.get("K2") == want["K2"] and calls.get("K3") == want["K3"],
           f"profiler kernel names per prefill: {calls}")
     out["prefill_trace"] = (wall, secs, calls, top)
     _, caches = engine.model.prefill(engine.params, pr)
@@ -1830,10 +1851,11 @@ def short_prefill(engine, model32, params32, prompts, want):
 
 def reduced_serve():
     """zamba2-1.2b's reduced config (head dims 16, SSM P = N = 16, chunk
-    16, fp32) through its own ``ServeEngine``: the configs that still run
-    the simt kernels.  Its prefill must take K2's and K3's simt kernels
-    once a layer and nothing else; the prefill logits on the kernels
-    against ``plain_kernels()`` at the fp32 tolerance."""
+    16, fp32) through its own ``ServeEngine``: the narrow instances.  Its
+    prefill of REDUCED_PROMPT tokens must take K2's wgmma_f32 once an
+    attention layer and K3's wgmma_split_short (one chunk padded to 64
+    steps) once an SSM layer, and nothing else; the prefill logits on the
+    kernels against ``plain_kernels()`` at the fp32 tolerance."""
     cfg = get_config("zamba2_1p2b", reduced=True)
     gen = torch.Generator(device=DEV).manual_seed(4)
     params = build_model(cfg).init(gen, DEV)
@@ -1843,8 +1865,9 @@ def reduced_serve():
                             generator=gen, device=DEV,
                             dtype=torch.int32).cpu().numpy()
     kinds = cfg.layer_kinds()
-    want = (only(K2, simt=kinds.count("attn_shared") + kinds.count("attn")),
-            only(K3, simt=kinds.count("ssm")))
+    want = (only(K2, wgmma_f32=kinds.count("attn_shared")
+                 + kinds.count("attn")),
+            only(K3, wgmma_split_short=kinds.count("ssm")))
     reset_kernel_counts()
     res = engine.generate(prompts, REDUCED_NEW)
     out = {"counts": kernel_counts(), "want": want,
@@ -1948,7 +1971,7 @@ def f32_check(fam):
     """The family's full width at 2 layers in fp32, one request, its
     logits at every prompt position on the kernels and under
     ``plain_kernels()``; K2 must run its wgmma_f32 variant twice a layer
-    stack (six times for whisper), and never its simt kernel."""
+    stack (six times for whisper), and nothing else."""
     cut = dict(fam.cut, n_layers=2, dtype=F32, param_dtype=F32)
     cfg = get_config(fam.arch)
     if cfg.is_encdec:
@@ -2045,8 +2068,7 @@ def family_phase(fam):
     out["trace"] = device_breakdown(lambda: got.append(prefill()))
     logits = got[0][0]
     check(K2.flash_attention_cuda.launches == fam.k2
-          and out["trace"][2].get("K2", 0) == fam.k2
-          and "K2 simt" not in out["trace"][2],
+          and out["trace"][2].get("K2", 0) == fam.k2,
           f"{fam.arch}: traced prefill K2 launches "
           f"{K2.flash_attention_cuda.launches}, profiler {out['trace'][2]}")
     check(logits.shape == (fam.batch, cfg.vocab)
@@ -2832,26 +2854,48 @@ def report_distributed(k1, k2, k3, k4, secs, dry_s, card):
         f"{dry_s:.1f} s")
 
 
-#: K2's timed calls: zamba2-1.2b's prefill attention, and qwen3-8b's
-#: heads (32 query heads over 8 KV heads of 128) at the same batch and
-#: prompt; (B, H, Hkv, S, D), bf16, causal, as [B, S, H, D] views
+#: K2's timed calls: zamba2-1.2b's prefill attention, qwen3-8b's heads (32
+#: query heads over 8 KV heads of 128) at the same batch and prompt, and
+#: the reduced configs' head dims 16 and 32 at the same batch, heads and
+#: prompt; (B, H, Hkv, S, D), bf16 and fp32, causal, as [B, S, H, D] views
 K2_TIMED = {"zamba2": (SERVE_B, SERVE_HEADS, SERVE_HEADS, SERVE_PROMPT, 64),
-            "qwen3_d128": (SERVE_B, 32, 8, SERVE_PROMPT, 128)}
-#: the kernels each also times in fp32: at D 128 the split instance's one
-#: staging tile (the simt kernel in fp32 is timed at zamba2's call)
-K2_TIMED_F32 = {"zamba2": ("wgmma_f32", "simt_f32"),
-                "qwen3_d128": ("wgmma_f32",)}
+            "qwen3_d128": (SERVE_B, 32, 8, SERVE_PROMPT, 128),
+            "d16": (SERVE_B, SERVE_HEADS, SERVE_HEADS, SERVE_PROMPT, 16),
+            "d32": (SERVE_B, SERVE_HEADS, SERVE_HEADS, SERVE_PROMPT, 32)}
+#: the calls also timed by the profiler's device time (in the child
+#: process of :func:`measure_apart`)
+K2_DEVICE_TIMED = ("d16", "d32")
+#: ex2 results a clock an SM on compute capability 9.0 (the CUDA C
+#: Programming Guide's throughput table), and the H100's SMs
+SFU_PER_CLOCK, SMS = 16, 132
 
 
-def measure_k2(gen, B, H, Hkv, S, D, f32=()):
-    """K2's wgmma and simt kernels, SDPA and the plain version on one
-    bf16 causal call, timed in turns (wgmma, simt, SDPA, plain, then
-    backwards); each time is the mean of its two turns.  ``f32`` names
-    the kernels also timed on the same call in fp32, the dtype of the
-    fp32 checks (``"wgmma_f32"``, the split-precision instance, and
-    ``"simt_f32"``), beside SDPA and the plain version in fp32;
-    wgmma_f32's bound is the split contract's: three bf16 products for
-    each."""
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout
+    return float(out.splitlines()[0]) * 1e6
+
+
+def sdpa(q, k, v, scale):
+    """PyTorch's fused attention on a causal call (GQA where k has fewer
+    heads): K2's yardstick, timed beside it and used nowhere in the
+    port."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale,
+        enable_gqa=k.shape[1] != q.shape[1])
+
+
+def measure_k2(gen, B, H, Hkv, S, D, device=False):
+    """K2's instances, SDPA and the plain version on one causal call,
+    timed in turns by loop time (wgmma, SDPA, plain, then the fp32 ones:
+    wgmma_f32, SDPA, plain; then backwards); each time is the mean of its
+    two turns.  With ``device`` also the profiler's device time of each
+    kernel and of SDPA.  wgmma_f32's bound is the split contract's: three
+    bf16 products for each.  Each bound's terms: bytes, tensor operations
+    and the softmax's exponentials (one ex2 a causal pair on the SFUs at
+    the card's maximum SM clock)."""
     q = torch.randn(B, S, H, D, generator=gen, device=DEV).to(BF16)
     k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=DEV).to(BF16)
             for _ in range(2))
@@ -2860,75 +2904,87 @@ def measure_k2(gen, B, H, Hkv, S, D, f32=()):
     counts = (K2.flash_attention_cuda.launches,
               dict(K2.flash_attention_cuda.by_variant))
     want = attention_ref(q, k, v, scale)
-    errs = {}
-    for name, fn in (("wgmma", K2.flash_attention_wgmma),
-                     ("simt", K2.flash_attention_simt)):
-        got = fn(q, k, v, scale)
-        torch.cuda.synchronize()
-        errs[name] = float((got.float() - want.float()).abs().max())
-        check(torch.allclose(got.float(), want.float(), rtol=K2_TOL[BF16],
-                             atol=K2_TOL[BF16]),
-              f"K2 {name} at {(B, H, Hkv, S, D)}: max err {errs[name]:.3g}")
-    del got, want
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    got = K2.flash_attention_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    errs = {"wgmma": float((got.float() - want.float()).abs().max())}
+    check(torch.allclose(got.float(), want.float(), rtol=K2_TOL[BF16],
+                         atol=K2_TOL[BF16]),
+          f"K2 wgmma at {(B, H, Hkv, S, D)}: max err {errs['wgmma']:.3g}")
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    want32 = attention_ref(q32, k32, v32, scale)
+    want64 = attention_ref(q32.double(), k32.double(), v32.double(), scale)
+    f64 = {"plain": float((want32.double() - want64).abs().max())}
+    got32 = K2.flash_attention_cuda(q32, k32, v32, scale)
+    torch.cuda.synchronize()
+    errs["wgmma_f32"] = float((got32 - want32).abs().max())
+    f64["wgmma_f32"] = float((got32.double() - want64).abs().max())
+    check(torch.allclose(got32, want32, rtol=K2_TOL[F32], atol=K2_TOL[F32]),
+          f"K2 wgmma_f32 at {(B, H, Hkv, S, D)}: max err "
+          f"{errs['wgmma_f32']:.3g}")
+    del got, want, got32, want32, want64
     runs = {
-        "wgmma": (lambda: K2.flash_attention_wgmma(q, k, v, scale), 20),
-        "simt": (lambda: K2.flash_attention_simt(q, k, v, scale), 5),
-        "sdpa": (lambda: sdpa(q, k, v, is_causal=True, scale=scale,
-                              enable_gqa=Hkv != H), 20),
+        "wgmma": (lambda: K2.flash_attention_cuda(q, k, v, scale), 20),
+        "sdpa": (lambda: sdpa(q, k, v, scale), 20),
         "plain": (lambda: attention_ref(q, k, v, scale), 3),
+        "wgmma_f32": (lambda: K2.flash_attention_cuda(q32, k32, v32, scale),
+                      10),
+        "sdpa_f32": (lambda: sdpa(q32, k32, v32, scale), 5),
+        "plain_f32": (lambda: attention_ref(q32, k32, v32, scale), 3),
     }
-    if f32:
-        q32, k32, v32 = (t.float() for t in (q, k, v))
-        want32 = attention_ref(q32, k32, v32, scale)
-        want64 = attention_ref(q32.double(), k32.double(), v32.double(),
-                               scale)
-        f64 = {"plain": float((want32.double() - want64).abs().max())}
-        f32_fns = {"wgmma_f32": K2.flash_attention_wgmma,
-                   "simt_f32": K2.flash_attention_simt}
-        for name in f32:
-            got32 = f32_fns[name](q32, k32, v32, scale)
-            torch.cuda.synchronize()
-            errs[name] = float((got32 - want32).abs().max())
-            f64[name] = float((got32.double() - want64).abs().max())
-            check(torch.allclose(got32, want32, rtol=K2_TOL[F32],
-                                 atol=K2_TOL[F32]),
-                  f"K2 {name} at {(B, H, Hkv, S, D)}: max err "
-                  f"{errs[name]:.3g}")
-        del got32, want32, want64
-        runs.update({
-            name: (lambda fn=f32_fns[name]: fn(q32, k32, v32, scale),
-                   10 if name == "wgmma_f32" else 5) for name in f32})
-        runs.update({
-            "sdpa_f32": (lambda: sdpa(q32, k32, v32, is_causal=True,
-                                      scale=scale, enable_gqa=Hkv != H), 5),
-            "plain_f32": (lambda: attention_ref(q32, k32, v32, scale), 3),
-        })
     turns = {name: [] for name in runs}
     for order in (list(runs), list(runs)[::-1]):
         for name in order:
             fn, reps = runs[name]
             turns[name].append(event_ms(fn, reps))
+    dev = ({name: device_ms(runs[name][0], 10)
+            for name in ("wgmma", "sdpa", "wgmma_f32", "sdpa_f32")}
+           if device else {})
     # comparison launches
     K2.flash_attention_cuda.launches, K2.flash_attention_cuda.by_variant = \
         counts
     ms = {name: sum(t) / len(t) for name, t in turns.items()}
-    flops = 4 * B * H * D * (S * (S + 1) // 2)    # the causal pairs only
+    pairs = B * H * (S * (S + 1) // 2)            # the causal pairs only
+    flops = 4 * D * pairs
     nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * 2   # q, o; k, v
-    entry = {name: bound_entry(errs[name], ms[name], ms["plain"],
-                               ms["sdpa"], flops, nbytes)
-             for name in ("wgmma", "simt")}
-    for name in f32:
-        entry[name] = (
-            bound_entry(errs[name], ms[name], ms["plain_f32"],
-                        ms["sdpa_f32"], 3 * flops, 2 * nbytes)
-            if name == "wgmma_f32" else
-            bound_entry(errs[name], ms[name], ms["plain_f32"],
-                        ms["sdpa_f32"], flops, 2 * nbytes, FP32_FLOPS))
-    if f32:
-        entry["f64_err"] = f64
-    entry["turns"] = turns
+    ex2_ms = pairs / (SFU_PER_CLOCK * SMS * max_sm_clock_hz()) * 1e3
+    entry = {
+        "wgmma": bound_entry(errs["wgmma"], ms["wgmma"], ms["plain"],
+                             ms["sdpa"], flops, nbytes, ex2_ms=ex2_ms),
+        "wgmma_f32": bound_entry(errs["wgmma_f32"], ms["wgmma_f32"],
+                                 ms["plain_f32"], ms["sdpa_f32"], 3 * flops,
+                                 2 * nbytes, ex2_ms=ex2_ms),
+        "f64_err": f64, "turns": turns, "device_ms": dev}
     return entry
+
+
+def fmt_terms(terms):
+    return ", ".join(f"{k} {v:.5f}" for k, v in terms.items())
+
+
+def report_k2(k2m, card):
+    for tag, (B, H, Hkv, S, D) in K2_TIMED.items():
+        turns, f64, dev = (k2m[tag][k] for k in ("turns", "f64_err",
+                                                 "device_ms"))
+        for var, dt, sdpa, plain in (("wgmma", "bf16", "sdpa", "plain"),
+                                     ("wgmma_f32", "fp32", "sdpa_f32",
+                                      "plain_f32")):
+            km = k2m[tag][var]
+            log(f"K2 {var} at {tag} q [{B},{H},{S},{D}], k/v [{B},{Hkv},"
+                f"{S},{D}] {dt} causal on {card}: {km['ms']:.4f} ms (turns "
+                f"{', '.join(f'{t:.4f}' for t in turns[var])})"
+                + (f", device {dev[var]:.4f} ms" if dev else "")
+                + f", bound {km['bound_ms']:.5f} ms ({km['bound_by']}: "
+                f"{fmt_terms(km['terms'])}"
+                + ("; three bf16 products for each" if dt == "fp32" else "")
+                + f"; {km['flops'] / 1e9:.1f} GFLOP, "
+                f"{km['bytes'] / 1e6:.1f} MB), SDPA {dt} "
+                f"{km['library_ms']:.4f} ms (turns "
+                f"{', '.join(f'{t:.4f}' for t in turns[sdpa])})"
+                + (f", device {dev[sdpa]:.4f} ms" if dev else "")
+                + f", plain {km['plain_ms']:.3f} ms, max |kernel-plain| "
+                f"{km['max_abs_err']:.3g}"
+                + (f", max |kernel-float64| {f64[var]:.3g} (fp32 plain "
+                   f"version: {f64['plain']:.3g})" if dt == "fp32" else ""))
 
 
 def k3_work(B, L, H, P, N, Q, bc_bytes):
@@ -2943,37 +2999,47 @@ def k3_work(B, L, H, P, N, Q, bc_bytes):
     return flops, nbytes
 
 
-#: K3's timed calls at H 64, P = N = 64 and a configured chunk of 128:
-#: (tag, L, B, B/C dtype, the kernels timed beside the plain version).
-#: The serving call; then below one chunk, L 1, 12 (the serving
-#: launcher's prompt) and 64 at B 8 and at B 4 (the launcher's batch),
-#: with bf16 and with f32 B/C: the short kernel, the 128-step tile called
-#: directly, and the simt kernel
-K3_TIMED = (("serve", SERVE_PROMPT, SERVE_B, BF16, ("wgmma", "simt")),
-            ("serve_f32bc", SERVE_PROMPT, SERVE_B, F32, ("wgmma_split",)),
+#: the dims of K3's timed calls: (P, N, configured chunk) at H 64
+K3_WIDE, K3_NARROW = (64, 64, 128), (16, 16, 16)
+#: K3's timed calls: (tag, L, B, B/C dtype, the kernels timed beside the
+#: plain version, (P, N, chunk)).  The serving call; then below one
+#: chunk, L 1, 12 (the serving launcher's prompt) and 64 at B 8 and at B
+#: 4 (the launcher's batch), with bf16 and with f32 B/C: the short kernel
+#: and the 128-step tile called directly; then the reduced config's dims
+#: (P = N = 16, chunk 16) at the serving batch, heads and prompt, and at
+#: L 12, bf16 and f32 B/C
+K3_TIMED = (("serve", SERVE_PROMPT, SERVE_B, BF16, ("wgmma",), K3_WIDE),
+            ("serve_f32bc", SERVE_PROMPT, SERVE_B, F32, ("wgmma_split",),
+             K3_WIDE),
             ) + tuple(
     (f"L{L}_B{B}_{'bf16' if dt == BF16 else 'f32bc'}", L, B, dt,
-     ("wgmma_short", "wgmma", "simt") if dt == BF16
-     else ("wgmma_split_short", "wgmma_split", "simt"))
-    for L in (1, SHORT_PROMPT, 64) for B in (SERVE_B, 4) for dt in (BF16, F32))
+     ("wgmma_short", "wgmma") if dt == BF16
+     else ("wgmma_split_short", "wgmma_split"), K3_WIDE)
+    for L in (1, SHORT_PROMPT, 64) for B in (SERVE_B, 4) for dt in (BF16, F32)
+) + tuple(
+    (f"narrow_L{L}_{'bf16' if dt == BF16 else 'f32bc'}", L, SERVE_B, dt,
+     (("wgmma" if dt == BF16 else "wgmma_split")
+      + ("_short" if L <= 64 else ""),), K3_NARROW)
+    for L in (SERVE_PROMPT, SHORT_PROMPT) for dt in (BF16, F32))
 
 
 def k3_kernel(name):
     """The K3 kernel a name of ``K3_TIMED`` calls, the wgmma tile fixed:
     ``fn(x, a, Bm, Cm, chunk)``."""
-    if name == "simt":
-        return K3.ssd_scan_simt
-    return functools.partial(K3.ssd_scan_wgmma,
+    return functools.partial(K3.ssd_scan_cuda,
                              tile=64 if name.endswith("_short") else 128)
 
 
 def k3_launchers(mod=K3):
     """{loaded library: the names of its C launchers} of the K3 kernels
-    of ``mod`` (this tree's ``kernel`` module, or another tree's)."""
-    return {mod.WGMMA_LIBRARY.get(): ("ssd_scan_wgmma_launch",
-                                      "ssd_scan_split_launch",
-                                      "ssd_scan_split_bc_launch"),
-            mod.LIBRARY.get(): ("ssd_scan_launch",)}
+    of ``mod`` (this tree's ``kernel`` module, or another tree's, which
+    may also have a CUDA-core library)."""
+    out = {mod.WGMMA_LIBRARY.get(): ("ssd_scan_wgmma_launch",
+                                     "ssd_scan_split_launch",
+                                     "ssd_scan_split_bc_launch")}
+    if hasattr(mod, "LIBRARY"):
+        out[mod.LIBRARY.get()] = ("ssd_scan_launch",)
+    return out
 
 
 @contextlib.contextmanager
@@ -3079,8 +3145,8 @@ def mean_turns(turns):
 
 
 def measure_k3(gen, timed=K3_TIMED):
-    """K3 at each call of ``timed`` (x [B, L, 64, 64] f32, a [B, L, 64],
-    chunk 128, B/C [B, L, 64] column slices): each kernel checked against
+    """K3 at each call of ``timed`` (x [B, L, 64, P] f32, a [B, L, 64],
+    B/C [B, L, N] column slices): each kernel checked against
     the plain version (K3_TOL x scale), then timed by
     :func:`k3_call_times` in turns (forwards, then backwards; each number
     the mean of its two turns), the plain version's loop time before and
@@ -3089,7 +3155,7 @@ def measure_k3(gen, timed=K3_TIMED):
     float64 on the card.  Comparison launches: the counts are put back.
     -> {tag: {kernel: measurements, "plain_f64_err": ...}}; a split
     instance's bound is the contract's (three bf16 products for each)."""
-    H, P, N, Q = SERVE_SSM_HEADS, 64, 64, 128
+    H = SERVE_SSM_HEADS
     counts = (K3.ssd_scan_cuda.launches, dict(K3.ssd_scan_cuda.by_variant))
 
     def dist(y, s, yw, sw):
@@ -3097,9 +3163,9 @@ def measure_k3(gen, timed=K3_TIMED):
                    float((s.double() - sw.double()).abs().max()))
 
     out = {}
-    for tag, L, B, bdt, names in timed:
+    for tag, L, B, bdt, names, (P, N, Q) in timed:
         x, a, Bm, Cm = k3_inputs(gen, B, L, H, P, N, bdt, 0.7)
-        check(K3.variant(Bm.dtype, P, N, Q, L) == names[0],
+        check(K3.variant(Bm.dtype, P, N, L) == names[0],
               f"K3 {tag} variant")
         yp, sp = ssd_chunked_ref(x, a, Bm, Cm, min(Q, L))
         y64, s64 = ssd_chunked_ref(x.double(), a.double(), Bm.double(),
@@ -3146,13 +3212,13 @@ def measure_k3(gen, timed=K3_TIMED):
 
 
 def report_k3(k3m, timed, card):
-    for tag, L, B, bdt, names in timed:
+    for tag, L, B, bdt, names, (P, N, Q) in timed:
         k3 = k3m[tag]
         plain_turns = ", ".join(f"{t:.4f}" for t in k3["plain_turns"])
         for var in names:
             km = k3[var]
-            log(f"K3 {var} at x [{B},{L},64,64] f32, B/C "
-                f"{str(bdt).replace('torch.', '')}, chunk 128 on {card}: "
+            log(f"K3 {var} at x [{B},{L},64,{P}] f32, N {N}, B/C "
+                f"{str(bdt).replace('torch.', '')}, chunk {Q} on {card}: "
                 f"{km['ms']:.4f} ms in a loop (turns "
                 + ", ".join(f"{t:.4f}" for t in km["loop_turns"])
                 + ("), device not measured" if km["device_ms"] is None
@@ -3186,32 +3252,38 @@ def report_k3_occupancy():
           f"the short kernel does not fit two CTAs an SM: {occ}")
 
 
-def measure_k3_apart():
-    """:func:`measure_k3` over ``K3_TIMED`` in a process of its own
-    (``--k3-measure``), whose profiler is fresh: in a process that has
-    traced many runs, later traces keep only some kernel records, or
+def measure_apart():
+    """The calls timed by the profiler's device time, in a process of its
+    own (``--measure-apart``), whose profiler is fresh: in a process that
+    has traced many runs, later traces keep only some kernel records, or
     none (the K1 device times went wrong when K3's 76 traces ran in this
-    process).  The libraries are built already; the child loads them."""
-    path = REPO / "build" / "k3_timing.json"
+    process, and K2's at D 16/32 read 0 at the end of a full run).
+    The libraries are built already; the child loads them.  -> {"k2":
+    :func:`measure_k2` of each ``K2_DEVICE_TIMED`` call, "k3":
+    :func:`measure_k3` over ``K3_TIMED``}."""
+    path = REPO / "build" / "timing_apart.json"
     path.unlink(missing_ok=True)
     proc = subprocess.run(
-        [sys.executable, str(REPO / "chip_smoke.py"), "--k3-measure",
+        [sys.executable, str(REPO / "chip_smoke.py"), "--measure-apart",
          str(path)], capture_output=True, text=True, timeout=900)
     check(proc.returncode == 0,
-          f"the K3 timing process failed ({proc.returncode}): "
+          f"the timing process failed ({proc.returncode}): "
           f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
     return json.loads(path.read_text())
 
 
-def k3_measure_main(path) -> int:
-    """``python3 chip_smoke.py --k3-measure PATH``: :func:`measure_k3`
-    over ``K3_TIMED``, written to PATH as JSON."""
+def measure_apart_main(path) -> int:
+    """``python3 chip_smoke.py --measure-apart PATH``: K2's device-timed
+    calls (first, on the fresh profiler) and K3's, written to PATH as
+    JSON."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
     gen = torch.Generator(device="cuda").manual_seed(1)
-    Path(path).write_text(json.dumps(measure_k3(gen)))
+    k2 = {tag: measure_k2(gen, *K2_TIMED[tag], device=True)
+          for tag in K2_DEVICE_TIMED}
+    Path(path).write_text(json.dumps({"k2": k2, "k3": measure_k3(gen)}))
     return 0
 
 
@@ -3225,12 +3297,10 @@ def k3_short_main() -> int:
         return 2
     card = card_line()
     log(f"card {card} | torch {torch.__version__} cuda {torch.version.cuda}")
-    for lib in (K3.WGMMA_LIBRARY, K3.LIBRARY):
-        lib.start()
-    for lib in (K3.WGMMA_LIBRARY, K3.LIBRARY):
-        lib.get()
-        log(f"built {lib.source.name} in {lib.build_seconds:.1f} s")
-        report_ptxas(lib)
+    K3.WGMMA_LIBRARY.get()
+    log(f"built {K3.WGMMA_LIBRARY.source.name} in "
+        f"{K3.WGMMA_LIBRARY.build_seconds:.1f} s")
+    report_ptxas(K3.WGMMA_LIBRARY)
     report_k3_occupancy()
     gen = torch.Generator(device="cuda").manual_seed(1)
     n3, worst3 = k3_sweep(gen)
@@ -3247,13 +3317,18 @@ def k3_short_main() -> int:
 
 
 def bound_entry(err, ms, plain_ms, library_ms, flops, nbytes,
-                peak=BF16_FLOPS):
-    bytes_ms = nbytes / HBM_BPS * 1e3
-    ops_ms = flops / peak * 1e3
+                peak=BF16_FLOPS, ex2_ms=0.0):
+    """A measurement with its bound: the larger of the bytes' time at the
+    memory rate and the operations' at ``peak``; ``ex2_ms``, the
+    exponentials' time on the SFUs, is a third term (an operation)."""
+    terms = {"bytes": nbytes / HBM_BPS * 1e3, "operations": flops / peak * 1e3}
+    if ex2_ms:
+        terms["ex2"] = ex2_ms
+    top = max(terms, key=terms.get)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "flops": flops, "bytes": nbytes}
+            "library_ms": library_ms, "bound_ms": terms[top],
+            "bound_by": "bytes" if top == "bytes" else "operations",
+            "terms": terms, "flops": flops, "bytes": nbytes}
 
 
 def card_line() -> str:
@@ -3376,8 +3451,7 @@ def report_ptxas(lib):
 def build_kernels():
     """Start every kernel's nvcc at once, then wait on each."""
     t0 = time.perf_counter()
-    libs = (K.LIBRARY, K2.WGMMA_LIBRARY, K2.LIBRARY, K3.WGMMA_LIBRARY,
-            K3.LIBRARY)
+    libs = (K.LIBRARY, K2.WGMMA_LIBRARY, K3.WGMMA_LIBRARY)
     for lib in libs:
         lib.start()
     for lib in libs:
@@ -3448,9 +3522,10 @@ def main() -> int:
             for dt, c in cont.items())
         + f"; {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    k3m = measure_k3_apart()
-    log(f"K3 timing in a process of its own {time.perf_counter() - t0:.1f} "
-        f"s (reported below)")
+    apart = measure_apart()
+    k3m = apart["k3"]
+    log(f"K2 (D 16/32) and K3 timing in a process of its own "
+        f"{time.perf_counter() - t0:.1f} s (reported below)")
 
     table, t_draw, t_upload = build_population(SCALE)
     log(f"population: {table.num_rows} subjects x {VOLUME} float32 = "
@@ -3532,40 +3607,10 @@ def main() -> int:
     step_j = float(np.mean([r["s"] for r in tr["steps"][1:]]))
     report_distributed(*distributed_phase(step_j), card=card)
 
-    k2m = {tag: measure_k2(gen, *shape, f32=K2_TIMED_F32[tag])
-           for tag, shape in K2_TIMED.items()}
-    for tag, (B, H, Hkv, S, D) in K2_TIMED.items():
-        sdpa_turns = ", ".join(f"{t:.4f}" for t in k2m[tag]["turns"]["sdpa"])
-        for var in ("wgmma", "simt"):
-            km = k2m[tag][var]
-            turns = ", ".join(f"{t:.4f}" for t in k2m[tag]["turns"][var])
-            log(f"K2 {var} at {tag} q [{B},{H},{S},{D}], k/v "
-                f"[{B},{Hkv},{S},{D}] bf16 causal on {card}: "
-                f"{km['ms']:.4f} ms (turns {turns}), bound "
-                f"{km['bound_ms']:.4f} ms ({km['bound_by']}; "
-                f"{km['flops'] / 1e9:.1f} GFLOP, {km['bytes'] / 1e6:.1f} "
-                f"MB), SDPA {km['library_ms']:.4f} ms (turns {sdpa_turns}),"
-                f" plain {km['plain_ms']:.3f} ms, max |kernel-plain| "
-                f"{km['max_abs_err']:.3g}")
-    for tag, names in K2_TIMED_F32.items():
-        B, H, Hkv, S, D = K2_TIMED[tag]
-        turns = k2m[tag]["turns"]
-        f64 = k2m[tag]["f64_err"]
-        for var in names:
-            km = k2m[tag][var]
-            log(f"K2 {var} at {tag} q [{B},{H},{S},{D}], k/v [{B},{Hkv},"
-                f"{S},{D}] fp32 causal on {card}: {km['ms']:.4f} ms (turns "
-                f"{', '.join(f'{t:.4f}' for t in turns[var])}), bound "
-                f"{km['bound_ms']:.4f} ms ({km['bound_by']}, "
-                + ("three bf16 products for each, bf16 rate"
-                   if var == "wgmma_f32" else "fp32 rate")
-                + f"; {km['flops'] / 1e9:.1f} GFLOP, "
-                f"{km['bytes'] / 1e6:.1f} MB), SDPA fp32 "
-                f"{km['library_ms']:.4f} ms (turns "
-                f"{', '.join(f'{t:.4f}' for t in turns['sdpa_f32'])}), "
-                f"plain fp32 {km['plain_ms']:.3f} ms, max |kernel-plain| "
-                f"{km['max_abs_err']:.3g}, max |kernel-float64| "
-                f"{f64[var]:.3g} (fp32 plain version: {f64['plain']:.3g})")
+    k2m = {tag: measure_k2(gen, *shape) for tag, shape in K2_TIMED.items()
+           if tag not in K2_DEVICE_TIMED}
+    k2m.update(apart["k2"])
+    report_k2(k2m, card)
     report_k3(k3m, K3_TIMED, card)
 
     red = sv["reduced"]["counts"]
@@ -3585,11 +3630,11 @@ def main() -> int:
                     "src/repro/kernels/flash_attention/kernel.py:33",
                     sv["f32_k2_variants"]["wgmma_f32"],
                     k2m["zamba2"]["wgmma_f32"]),
-        kernel_line("flash_attention_simt",
+        kernel_line("flash_attention_f32_narrow",
                     "src/repro_torch/kernels/flash_attention/csrc/"
-                    "flash_attention.cu",
+                    "flash_attention_wgmma.cu",
                     "src/repro/kernels/flash_attention/kernel.py:33",
-                    red[0]["simt"], k2m["zamba2"]["simt_f32"]),
+                    red[0]["wgmma_f32"], k2m["d16"]["wgmma_f32"]),
         kernel_line("ssd_scan",
                     "src/repro_torch/kernels/ssm_scan/csrc/"
                     "ssd_scan_wgmma.cu",
@@ -3601,10 +3646,6 @@ def main() -> int:
                     "src/repro/kernels/ssm_scan/kernel.py:29",
                     sv["f32_k3_variants"]["wgmma_split"],
                     k3m["serve_f32bc"]["wgmma_split"]),
-        kernel_line("ssd_scan_simt",
-                    "src/repro_torch/kernels/ssm_scan/csrc/ssd_scan.cu",
-                    "src/repro/kernels/ssm_scan/kernel.py:29",
-                    red[1]["simt"], k3m["serve"]["simt"]),
         kernel_line("ssd_scan_short",
                     "src/repro_torch/kernels/ssm_scan/csrc/"
                     "ssd_scan_wgmma.cu",
@@ -3618,6 +3659,13 @@ def main() -> int:
                     sv["short"]["k3_f32"]["wgmma_split_short"],
                     k3m[f"L{SHORT_PROMPT}_B{SERVE_B}_f32bc"]
                     ["wgmma_split_short"]),
+        kernel_line("ssd_scan_short_split_narrow",
+                    "src/repro_torch/kernels/ssm_scan/csrc/"
+                    "ssd_scan_wgmma.cu",
+                    "src/repro/kernels/ssm_scan/kernel.py:29",
+                    red[1]["wgmma_split_short"],
+                    k3m[f"narrow_L{SHORT_PROMPT}_f32bc"]
+                    ["wgmma_split_short"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3627,6 +3675,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--k3-measure"] and len(sys.argv) == 3:
-        sys.exit(k3_measure_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--measure-apart"] and len(sys.argv) == 3:
+        sys.exit(measure_apart_main(sys.argv[2]))
     sys.exit(k3_short_main() if sys.argv[1:] == ["--k3-short"] else main())

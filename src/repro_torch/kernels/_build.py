@@ -167,7 +167,7 @@ def tma_strides(t) -> Optional[Tuple[int, ...]]:
     dimension, and the other strides positive multiples of 16 bytes.  A
     dimension of size 1 is never stepped along, so its stride is replaced
     by the last dimension's length, which qualifies for the wgmma kernels'
-    rows (64 or 128 elements of 2 or 4 bytes)."""
+    rows (a multiple of 8 elements of 2 or 4 bytes)."""
     if t.stride(-1) != 1 or t.data_ptr() % 16:
         return None
     es = t.element_size()

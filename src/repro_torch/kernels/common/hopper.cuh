@@ -1,5 +1,5 @@
 // PTX helpers for the port's Hopper (sm_90a) kernels: shared-memory
-// addresses, mbarriers, TMA loads, 128-byte-swizzle wgmma descriptors and
+// addresses, mbarriers, TMA loads, swizzled wgmma descriptors and
 // the wgmma instructions themselves, in raw inline PTX (no CUTLASS).
 //
 // Included by flash_attention/csrc/flash_attention_wgmma.cu and
@@ -67,15 +67,30 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle.  lbo: bytes between
-// 64-element column blocks of an MN-major operand; sbo: bytes between
-// 8-row groups.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// wgmma shared-memory descriptor for a tile whose rows are RB bytes (32,
+// 64 or 128) in the RB-byte swizzle: the 16-byte chunk bits [4, 4 + log2(RB
+// / 16)) of an address XORed with its bits from 7 up, the pattern TMA
+// writes (SWIZZLE_32B/64B/128B); the tile starts aligned to 8 rows.  lbo:
+// bytes between swizzle-atom column blocks of an MN-major operand; sbo:
+// bytes between 8-row groups.  Layout type (bits 62-63): 1 128-byte, 2
+// 64-byte, 3 32-byte swizzle.
+template <int RB>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  static_assert(RB == 32 || RB == 64 || RB == 128, "a swizzle of 32-128 B");
+  constexpr uint64_t layout = RB == 128 ? 1 : RB == 64 ? 2 : 3;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
          | (static_cast<uint64_t>(lbo >> 4) << 16)
          | (static_cast<uint64_t>(sbo >> 4) << 32)
-         | (1ull << 62);
+         | (layout << 62);
+}
+
+// Byte offset of 16-byte chunk c of row `row` in a tile of RB-byte rows in
+// the RB-byte swizzle (sw_desc's); the tile starts aligned to 8 rows.
+template <int RB>
+__device__ __forceinline__ uint32_t sw_chunk(int row, int c) {
+  const uint32_t lin = static_cast<uint32_t>(row * RB + c * 16);
+  return lin ^ (((lin >> 7) & (RB / 16 - 1)) << 4);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -297,6 +312,50 @@ __device__ __forceinline__ void wgmma_rs_n128_f16(float (&d)[64], const uint32_t
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// m64n16k16 and m64n32k16 with A from registers, B MN-major (K2's O += P V
+// at head dims 16 and 32).
+__device__ __forceinline__ void wgmma_rs_n16_bf16(float (&d)[8], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n16_f16(float (&d)[8], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32_bf16(float (&d)[16], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32_f16(float (&d)[16], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -1,11 +1,10 @@
-// Flash-attention forward for Hopper (sm_90a) at head dims 64 and 128:
-// wgmma tiles with a warp-specialised producer, in two instances.
+// Flash-attention forward for Hopper (sm_90a) at head dims 16, 32, 64 and
+// 128: wgmma tiles with a warp-specialised producer, in two instances.
 //
 // Replaces repro/kernels/flash_attention/kernel.py::_flash_kernel (the
-// Pallas TPU kernel) at head dims 64 and 128; flash_attention.cu beside it
-// keeps head dims 16 and 32.  Same function: for q [B, H, Sq, D] and k, v
-// [B, Hkv, Skv, D] (any batch/head/sequence strides, unit stride along D)
-// it writes o [B, H, Sq, D] in q's dtype:
+// Pallas TPU kernel) at every head dim the port takes.  Same function: for
+// q [B, H, Sq, D] and k, v [B, Hkv, Skv, D] (any batch/head/sequence
+// strides, unit stride along D) it writes o [B, H, Sq, D] in q's dtype:
 //
 //   s[i, j] = (q_i . k_j) * scale, set to -1e30 where masked
 //   o_i     = sum_j softmax_j(s[i, :]) v_j
@@ -22,13 +21,17 @@
 // tensor cores' 989 TFLOP/s bound it, not the bytes, and only wgmma
 // reaches that rate.  Done on the CUDA cores in fp32 the same work cannot
 // take less than 2 ms.  In fp32 the split below triples the products: 411
-// GFLOP of bf16 work, 0.42 ms, against 536 MB (0.16 ms).
+// GFLOP of bf16 work, 0.42 ms, against 536 MB (0.16 ms).  At the reduced
+// configs' head dim 16 the products shrink fourfold and the softmax does
+// not: one ex2 a causal pair (5.4e8 at B 8, H 32, S 2048) on the SFUs' 16
+// a clock an SM sets the floor, about 0.15 ms, above the tensor term.
 //
 // Design.  One CTA per (batch*head, 128-row query tile), heaviest causal
 // tiles first; three warpgroups.  Warpgroup 0 is the producer and fills a
 // ring of STAGES K/V buffers guarded by full and empty mbarriers.
 // Warpgroups 1 and 2 each own 64 query rows:
-//   S = Q K^T      wgmma m64nNk16, both operands in shared memory
+//   S = Q K^T      wgmma m64nNk16, both operands in shared memory, D/16
+//                  k-steps
 //   online softmax on the accumulator fragments in registers: each row
 //                  sits in a quad of lanes, reduced with two shuffles; the
 //                  scale is applied to the fp32 scores, with log2(e)
@@ -36,17 +39,19 @@
 //   O += P V       wgmma m64nDk16, P from registers (the accumulator layout
 //                  is the A-fragment layout), V from shared memory through
 //                  the transpose bit
-// Tiles use the 128-byte swizzle: a row of 64 elements is one 128-byte
-// swizzle row, so a D=128 tile is two column halves.  Keys past Skv arrive
-// as zeros and are masked by position; query rows past Sq are computed on
-// zeros and never stored.  Blocks wholly above the diagonal or wholly
-// before the window are skipped.
+// D is a template parameter.  A tile's rows are AT = min(D, 64) elements,
+// RB = 2 AT bytes (32, 64 or 128), stored in the RB-byte swizzle that TMA
+// writes and the descriptors name (hopper.cuh: sw_desc); a D = 128 tile is
+// two column halves of 64.  Keys past Skv arrive as zeros and are masked by
+// position; query rows past Sq are computed on zeros and never stored.
+// Blocks wholly above the diagonal or wholly before the window are
+// skipped.
 //
 // bf16 and f16 (flash_wgmma_kernel).  The producer gives up registers
-// (setmaxnreg) and one of its threads TMA-loads the Q tile once, then K and
-// V tiles of 128 keys.  The reference keeps P in fp32; here P is rounded to
-// the input type for the second product, a relative change of about 2^-9
-// (bf16) or 2^-12 (f16).
+// (setmaxnreg, at D >= 64) and one of its threads TMA-loads the Q tile
+// once, then K and V tiles of 128 keys.  The reference keeps P in fp32;
+// here P is rounded to the input type for the second product, a relative
+// change of about 2^-9 (bf16) or 2^-12 (f16).
 //
 // f32 (flash_wgmma_split_kernel), under the split-precision contract: an
 // fp32 operand enters the tensor cores only as hi = bf16(v), lo = bf16(v -
@@ -60,17 +65,39 @@
 // made once per tile, by the producer: one of its threads keeps TMA loads
 // of fp32 tiles (64 rows x D, unswizzled) in flight into NSTG staging
 // buffers, and all 128 split each staged tile (16-byte shared loads) into
-// hi and lo tiles in the 128-byte swizzle, fence the writes to the async
-// proxy and arrive on the tile's mbarrier (128 arrivals).  Hi/lo tiles
-// double the bf16 layout, so this instance takes K/V tiles of 64 keys: Q
-// hi/lo + 2 stages x (K + V) hi/lo = 96 KB at D = 64, with 4 staging
-// tiles of 16 KB (two key blocks ahead); 192 KB at D = 128, with the one
-// staging tile of 32 KB that still fits.  Registers: the producer keeps
-// 56, the consumers 224 (at D = 128: O 64, S 32, then P hi/lo 32).
+// hi and lo tiles in the swizzle, fence the writes to the async proxy and
+// arrive on the tile's mbarrier (128 arrivals).  Hi/lo tiles double the
+// bf16 layout, so this instance takes K/V tiles of 64 keys.
+//
+// Shared memory (bytes, + 1,024 to align, + the mbarriers):
+//   bf16/f16: Q + STAGES x (K + V)
+//     D 16   4,096 + 4 x 8,192 = 36,864
+//     D 32   8,192 + 4 x 16,384 = 73,728
+//     D 64   16,384 + 2 x 32,768 = 81,920
+//     D 128  32,768 + 2 x 65,536 = 163,840
+//   f32: Q hi/lo + STAGES x (K + V) hi/lo + NSTG fp32 staging tiles
+//     D 16   8,192 + 4 x 8,192 + 8 x 4,096 = 73,728
+//     D 32   16,384 + 4 x 16,384 + 8 x 8,192 = 147,456
+//     D 64   32,768 + 2 x 32,768 + 4 x 16,384 = 163,840
+//     D 128  65,536 + 2 x 65,536 + 1 x 32,768 = 229,376
+// At D <= 32 the tiles are small, so the rings are deeper: four key blocks
+// in flight, eight staging tiles (four key blocks ahead of the split).
+// Registers: 168 a thread at launch at most.  At D >= 64 the
+// producer gives its registers to the consumers (setmaxnreg: 40 / 232 in
+// the bf16 instance, 56 / 224 in the split one; at D = 128 O takes 64, S
+// 64 and P 32 a thread).  At D <= 32 a consumer needs fewer than 168 (S 64,
+// P 32, O 8 or 16 at D 16/32), so neither side moves any and the launcher
+// asks for no register count.
+//
+// Set-up.  Each kernel instance's dynamic shared memory is set (and, where
+// it uses setmaxnreg, its registers checked) once per device, not per
+// launch.  The tensor maps are encoded on every launch: they hold the
+// tensors' addresses.
 //
 // Every mbarrier wait traps after about 2^34 cycles (a lost arrival), and
 // the launcher refuses a build with too few registers for setmaxnreg.
 
+#include <atomic>
 #include <type_traits>
 
 #include "../../common/hopper.cuh"
@@ -81,25 +108,52 @@ using namespace hopper;
 
 constexpr int BQ = 128;        // query rows per CTA: two consumers of 64
 constexpr int BK = 128;        // keys per K/V tile
-constexpr int STAGES = 2;      // depth of the K/V ring
 constexpr int NT = 384;        // producer + two consumer warpgroups
-constexpr int ATOM = 64;       // elements in one 128-byte swizzle row
-constexpr int ROW_BYTES = 128;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// The tile geometry at head dim D: rows of AT = min(D, 64) elements, RB
+// bytes in the RB-byte swizzle, D / AT column halves; the depth of the K/V
+// ring; whether the warpgroups move registers (setmaxnreg).
 template <int D>
-struct Smem {
+struct Geo {
+  static constexpr int AT = D < 64 ? D : 64;
+  static constexpr int RB = AT * 2;
+  static constexpr int HALVES = D / AT;
+  static constexpr int STAGES = D <= 32 ? 4 : 2;
+  static constexpr bool MOVE_REGS = D >= 64;
+};
+
+template <int D>
+struct Smem : Geo<D> {
+  using G = Geo<D>;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;
   static constexpr int K_OFF = Q_BYTES;
-  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int V_OFF = K_OFF + G::STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + G::STAGES * KV_BYTES;
   // barriers: q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]
-  static constexpr int BYTES = BAR_OFF + (1 + 3 * STAGES) * 8;
+  static constexpr int BYTES = BAR_OFF + (1 + 3 * G::STAGES) * 8;
   static constexpr int ALLOC = BYTES + 1024;   // room to align to 1024
 };
+
+// Descriptor of k-step kk (16 columns) of a K-major tile of `rows` rows.
+template <int D>
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int rows, int kk) {
+  using G = Geo<D>;
+  constexpr int KPA = G::AT / 16;          // k-steps per column half
+  return sw_desc<G::RB>(tile + (kk / KPA) * rows * G::RB + (kk % KPA) * 32,
+                        16, 8 * G::RB);
+}
+
+// Descriptor of k-step j (16 keys) of an MN-major V tile of `rows` keys:
+// column halves rows * RB bytes apart, 8-key groups 8 * RB apart.
+template <int D>
+__device__ __forceinline__ uint64_t vdesc(uint32_t tile, int rows, int j) {
+  using G = Geo<D>;
+  return sw_desc<G::RB>(tile + j * 16 * G::RB, rows * G::RB, 8 * G::RB);
+}
 
 template <typename T>
 __device__ __forceinline__ void mma_qk(float (&d)[64], uint64_t a, uint64_t b,
@@ -117,7 +171,13 @@ template <typename T, int D>
 __device__ __forceinline__ void mma_pv(float (&d)[D / 2], const uint32_t* a,
                                        uint64_t b) {
   constexpr bool bf = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (D == 64) {
+  if constexpr (D == 16) {
+    if constexpr (bf) wgmma_rs_n16_bf16(d, a, b);
+    else wgmma_rs_n16_f16(d, a, b);
+  } else if constexpr (D == 32) {
+    if constexpr (bf) wgmma_rs_n32_bf16(d, a, b);
+    else wgmma_rs_n32_f16(d, a, b);
+  } else if constexpr (D == 64) {
     if constexpr (bf) wgmma_rs_n64_bf16(d, a, b);
     else wgmma_rs_n64_f16(d, a, b);
   } else {
@@ -230,7 +290,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    long long oss, int H, int group, int Sq, int Skv,
                    float scale_log2, int causal, int window) {
   using L = Smem<D>;
-  constexpr int HALVES = D / ATOM;
+  constexpr int STAGES = L::STAGES, RB = L::RB;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base, sK = base + L::K_OFF, sV = base + L::V_OFF;
@@ -259,34 +319,37 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ---- producer ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(PRODUCER_REGS));
+    if constexpr (L::MOVE_REGS)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                   :: "n"(PRODUCER_REGS));
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, L::Q_BYTES);
 #pragma unroll
-      for (int hf = 0; hf < HALVES; ++hf)
-        tma_load(sQ + hf * BQ * ROW_BYTES, &tm_q, bar_q, hf * ATOM, q0, h, b);
+      for (int hf = 0; hf < L::HALVES; ++hf)
+        tma_load(sQ + hf * BQ * RB, &tm_q, bar_q, hf * L::AT, q0, h, b);
       for (int it = 0; it < n_blocks; ++it) {
         const int s = it % STAGES;
         mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);
         const int k0 = (kb_begin + it) * BK;
         mbar_expect_tx(k_full(s), L::KV_BYTES);
 #pragma unroll
-        for (int hf = 0; hf < HALVES; ++hf)
-          tma_load(sK + s * L::KV_BYTES + hf * BK * ROW_BYTES, &tm_k,
-                   k_full(s), hf * ATOM, k0, hk, b);
+        for (int hf = 0; hf < L::HALVES; ++hf)
+          tma_load(sK + s * L::KV_BYTES + hf * BK * RB, &tm_k, k_full(s),
+                   hf * L::AT, k0, hk, b);
         mbar_expect_tx(v_full(s), L::KV_BYTES);
 #pragma unroll
-        for (int hf = 0; hf < HALVES; ++hf)
-          tma_load(sV + s * L::KV_BYTES + hf * BK * ROW_BYTES, &tm_v,
-                   v_full(s), hf * ATOM, k0, hk, b);
+        for (int hf = 0; hf < L::HALVES; ++hf)
+          tma_load(sV + s * L::KV_BYTES + hf * BK * RB, &tm_v, v_full(s),
+                   hf * L::AT, k0, hk, b);
       }
     }
     return;
   }
 
   // ---- consumers: warpgroup 1 rows [0, 64), warpgroup 2 rows [64, 128) ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  if constexpr (L::MOVE_REGS)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(CONSUMER_REGS));
   const int cw = wg - 1;
   const int t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32;
@@ -299,7 +362,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   Rows rs;
 
-  const uint32_t qa = sQ + cw * 64 * ROW_BYTES;
+  const uint32_t qa = sQ + cw * 64 * RB;
   mbar_wait(bar_q, 0);
 
   for (int it = 0; it < n_blocks; ++it) {
@@ -313,14 +376,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(k_full(s), ph);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      const uint64_t da =
-          sw128_desc(qa + (kk / 4) * BQ * ROW_BYTES + off, 16, 1024);
-      const uint64_t db =
-          sw128_desc(ka + (kk / 4) * BK * ROW_BYTES + off, 16, 1024);
-      mma_qk<T>(sc, da, db, kk == 0);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_qk<T>(sc, kdesc<D>(qa, BQ, kk), kdesc<D>(ka, BK, kk), kk == 0);
     wg_commit();
     wg_wait_all();
     fence_regs(sc);
@@ -331,15 +388,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < BK / 4; ++i) pa[i] = pack2<T>(sc[2 * i], sc[2 * i + 1]);
 
-    // O += P V: BK/16 k-steps of 16 keys (2048 bytes of V each)
+    // O += P V: BK/16 k-steps of 16 keys
     const uint32_t va = sV + s * L::KV_BYTES;
     mbar_wait(v_full(s), ph);
     fence_regs(acc);
     wg_fence();
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j)
-      mma_pv<T, D>(acc, pa + 4 * j,
-                   sw128_desc(va + j * 16 * ROW_BYTES, BK * ROW_BYTES, 1024));
+      mma_pv<T, D>(acc, pa + 4 * j, vdesc<D>(va, BK, j));
     wg_commit();
     wg_wait_all();
     fence_regs(acc);
@@ -367,29 +423,30 @@ constexpr int BKS = 64;        // keys per K/V tile of the fp32 instance
 constexpr int SPLIT_PRODUCER_REGS = 56, SPLIT_CONSUMER_REGS = 224;
 
 // Q's hi and lo tiles, then per stage the hi and lo tiles of K and of V,
-// each in the 128-byte swizzle (a D = 128 tile is two column halves);
+// each in the swizzle of Geo<D> (a D = 128 tile is two column halves);
 // then NSTG fp32 staging tiles of 64 rows, which TMA fills.
 template <int D>
-struct SplitSmem {
+struct SplitSmem : Geo<D> {
+  using G = Geo<D>;
   static constexpr int Q_BYTES = BQ * D * 2;     // one bf16 part of Q
   static constexpr int T_BYTES = BKS * D * 2;    // one bf16 part of K or V
   static constexpr int QL_OFF = Q_BYTES;
   static constexpr int KV_OFF = 2 * Q_BYTES;     // K hi, K lo, V hi, V lo
   static constexpr int STAGE_BYTES = 4 * T_BYTES;
-  static constexpr int STG_OFF = KV_OFF + STAGES * STAGE_BYTES;
+  static constexpr int STG_OFF = KV_OFF + G::STAGES * STAGE_BYTES;
   static constexpr int STG_BYTES = BKS * D * 4;  // one fp32 tile of 64 rows
-  static constexpr int NSTG = D == 64 ? 4 : 1;   // what is left of 227 KB
+  // what is left of 227 KB
+  static constexpr int NSTG = D <= 32 ? 8 : D == 64 ? 4 : 1;
   static constexpr int BAR_OFF = STG_OFF + NSTG * STG_BYTES;
   // barriers: q_full, k_full[STAGES], v_full[STAGES], empty[STAGES],
   // staged[NSTG]
-  static constexpr int BYTES = BAR_OFF + (1 + 3 * STAGES + NSTG) * 8;
+  static constexpr int BYTES = BAR_OFF + (1 + 3 * G::STAGES + NSTG) * 8;
   static constexpr int ALLOC = BYTES + 1024;    // room to align to 1024
+  static_assert(ALLOC <= 232448, "over the 227 KB a CTA may use");
 };
-static_assert(SplitSmem<64>::ALLOC <= 232448, "over the 227 KB a CTA may use");
-static_assert(SplitSmem<128>::ALLOC <= 232448, "over the 227 KB a CTA may use");
 
 // One staged fp32 tile of 64 rows x D (dense, row-major) split into hi and
-// lo bf16 tiles in the 128-byte swizzle, as rows [row0, row0 + 64) of
+// lo bf16 tiles in the swizzle of Geo<D>, as rows [row0, row0 + 64) of
 // destination tiles of R rows, by the 128 producer threads: each takes
 // chunks of 8 values (two 16-byte shared loads, one 16-byte store per
 // part).
@@ -398,7 +455,9 @@ __device__ __forceinline__ void split_staged(const float* stg,
                                              unsigned char* hi,
                                              unsigned char* lo, int row0,
                                              int pt) {
+  using G = Geo<D>;
   constexpr int CPR = D / 8;             // chunks per row
+  constexpr int CPA = G::AT / 8;         // chunks per column half's row
   constexpr int PER = BKS * CPR / 128;   // chunks per thread
 #pragma unroll 2
   for (int i = 0; i < PER; ++i) {
@@ -412,8 +471,8 @@ __device__ __forceinline__ void split_staged(const float* stg,
     split2(b.x, b.y, h.z, l.z);
     split2(b.z, b.w, h.w, l.w);
     const int row = row0 + r;
-    const uint32_t off = (cc / 8) * R * ROW_BYTES + row * ROW_BYTES +
-                         ((((cc % 8) ^ row) & 7) << 4);
+    const uint32_t off =
+        (cc / CPA) * R * G::RB + sw_chunk<G::RB>(row, cc % CPA);
     *reinterpret_cast<uint4*>(hi + off) = h;
     *reinterpret_cast<uint4*>(lo + off) = l;
   }
@@ -432,6 +491,7 @@ flash_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
                          long long oss, int H, int group, int Sq, int Skv,
                          float scale_log2, int causal, int window) {
   using L = SplitSmem<D>;
+  constexpr int STAGES = L::STAGES, RB = L::RB;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -466,8 +526,9 @@ flash_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
     // all 128 threads split each staged tile into the bf16 ring.  Tiles
     // in order: Q rows [0, 64) and [64, 128), then K and V of each key
     // block. ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(SPLIT_PRODUCER_REGS));
+    if constexpr (L::MOVE_REGS)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                   :: "n"(SPLIT_PRODUCER_REGS));
     const int pt = threadIdx.x;
     const int total = 2 + 2 * n_blocks;
     const CUtensorMap* mq = &tm_q;
@@ -511,8 +572,9 @@ flash_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // ---- consumers: warpgroup 1 rows [0, 64), warpgroup 2 rows [64, 128) ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-               :: "n"(SPLIT_CONSUMER_REGS));
+  if constexpr (L::MOVE_REGS)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(SPLIT_CONSUMER_REGS));
   const int cw = wg - 1;
   const int t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32;
@@ -524,7 +586,7 @@ flash_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   Rows rs;
-  const uint32_t qh = base + cw * 64 * ROW_BYTES;
+  const uint32_t qh = base + cw * 64 * RB;
   const uint32_t ql = qh + L::QL_OFF;
   mbar_wait(bar_q, 0);
 
@@ -544,13 +606,10 @@ flash_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      const uint32_t qo = (kk / 4) * BQ * ROW_BYTES + off;
-      const uint32_t ko = (kk / 4) * BKS * ROW_BYTES + off;
-      const uint64_t ah = sw128_desc(qh + qo, 16, 1024);
-      const uint64_t al = sw128_desc(ql + qo, 16, 1024);
-      const uint64_t bh_ = sw128_desc(kh + ko, 16, 1024);
-      const uint64_t bl_ = sw128_desc(kl + ko, 16, 1024);
+      const uint64_t ah = kdesc<D>(qh, BQ, kk);
+      const uint64_t al = kdesc<D>(ql, BQ, kk);
+      const uint64_t bh_ = kdesc<D>(kh, BKS, kk);
+      const uint64_t bl_ = kdesc<D>(kl, BKS, kk);
       wgmma_ss_n64_bf16<0, 0>(sc, ah, bh_, 1);
       wgmma_ss_n64_bf16<0, 0>(sc, ah, bl_, 1);
       wgmma_ss_n64_bf16<0, 0>(sc, al, bh_, 1);
@@ -573,10 +632,8 @@ flash_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
     wg_fence();
 #pragma unroll
     for (int j = 0; j < BKS / 16; ++j) {
-      const uint64_t dh =
-          sw128_desc(vh + j * 16 * ROW_BYTES, BKS * ROW_BYTES, 1024);
-      const uint64_t dl =
-          sw128_desc(vl + j * 16 * ROW_BYTES, BKS * ROW_BYTES, 1024);
+      const uint64_t dh = vdesc<D>(vh, BKS, j);
+      const uint64_t dl = vdesc<D>(vl, BKS, j);
       mma_pv<__nv_bfloat16, D>(acc, pah + 4 * j, dh);
       mma_pv<__nv_bfloat16, D>(acc, pah + 4 * j, dl);
       mma_pv<__nv_bfloat16, D>(acc, pal + 4 * j, dh);
@@ -603,12 +660,13 @@ flash_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host side -------------------------------------------------------------
 
-// A [B, Hn, S, D] operand as a 4-D tensor map (D, S, Hn, B), boxes of 64
-// columns x `rows` rows, 128-byte swizzle, zeros outside.  st holds its
-// (batch, head, sequence) element strides.
-template <typename T>
-CUresult encode(CUtensorMap* map, const void* ptr, int D, int S, int Hn, int B,
+// A [B, Hn, S, D] operand as a 4-D tensor map (D, S, Hn, B), boxes of AT
+// columns x `rows` rows in the RB-byte swizzle (Geo<D>), zeros outside.
+// st holds its (batch, head, sequence) element strides.
+template <typename T, int D>
+CUresult encode(CUtensorMap* map, const void* ptr, int S, int Hn, int B,
                 const long long* st, int rows) {
+  using G = Geo<D>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(Hn),
@@ -617,56 +675,19 @@ CUresult encode(CUtensorMap* map, const void* ptr, int D, int S, int Hn, int B,
       static_cast<cuuint64_t>(st[2]) * sizeof(T),
       static_cast<cuuint64_t>(st[1]) * sizeof(T),
       static_cast<cuuint64_t>(st[0]) * sizeof(T)};
-  const cuuint32_t box[4] = {ATOM, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {G::AT, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapDataType dt = std::is_same<T, __nv_bfloat16>::value
                                      ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const CUtensorMapSwizzle sw = G::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : G::RB == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
   return cuTensorMapEncodeTiled(map, dt, 4, const_cast<void*>(ptr), dims,
                                 strides, box, unit,
-                                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                CU_TENSOR_MAP_SWIZZLE_128B,
+                                CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-constexpr int ENCODE_ERROR = 1000;   // + CUresult of cuTensorMapEncodeTiled
-
-// setmaxnreg moves registers between the warpgroups of the CTA's own
-// allocation: the kernel must start with enough of them, or the consumers'
-// setmaxnreg.inc would wait forever.
-template <typename K>
-cudaError_t prepare(K kernel, int producer_regs, int consumer_regs,
-                    int smem) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  if (attr.numRegs * NT < 128 * producer_regs + 256 * consumer_regs)
-    return cudaErrorInvalidConfiguration;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int Sq, int Skv, const long long* st, float scale,
-           int causal, int window, cudaStream_t stream) {
-  auto kernel = flash_wgmma_kernel<T, D>;
-  const int smem = Smem<D>::ALLOC;
-  const cudaError_t err =
-      prepare(kernel, PRODUCER_REGS, CONSUMER_REGS, smem);
-  if (err != cudaSuccess) return err;
-  CUtensorMap mq, mk, mv;
-  CUresult r = encode<T>(&mq, q, D, Sq, H, B, st, BQ);
-  if (r == CUDA_SUCCESS) r = encode<T>(&mk, k, D, Skv, Hkv, B, st + 3, BK);
-  if (r == CUDA_SUCCESS) r = encode<T>(&mv, v, D, Skv, Hkv, B, st + 6, BK);
-  if (r != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(r);
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, NT, smem, stream>>>(
-      mq, mk, mv, static_cast<T*>(o), st[9], st[10], st[11], H, H / Hkv, Sq,
-      Skv, scale * LOG2E, causal, window);
-  return cudaGetLastError();
 }
 
 // A [B, Hn, S, D] fp32 operand as a 4-D tensor map (D, S, Hn, B), boxes of
@@ -690,15 +711,71 @@ CUresult encode_f32(CUtensorMap* map, const void* ptr, int D, int S, int Hn,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+constexpr int ENCODE_ERROR = 1000;   // + CUresult of cuTensorMapEncodeTiled
+constexpr int MAX_DEVICES = 64;
+
+// Set up one kernel instance on the current device, once per device (a
+// bit per device in the instance's own `ready`): its dynamic shared memory
+// and, where it moves registers, a check of them.  setmaxnreg moves
+// registers between the warpgroups of the CTA's own allocation: the kernel
+// must start with enough of them, or the consumers' setmaxnreg.inc would
+// wait forever.  Returns 0 or a CUDA error code.
+template <bool MOVE_REGS, typename K>
+int prepare(std::atomic<unsigned long long>& ready, K kernel,
+            int producer_regs, int consumer_regs, int smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = dev < MAX_DEVICES ? 1ull << dev : 0;
+  if (ready.load(std::memory_order_acquire) & bit) return 0;
+  if constexpr (MOVE_REGS) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (attr.numRegs * NT < 128 * producer_regs + 256 * consumer_regs)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ready.fetch_or(bit, std::memory_order_release);
+  return 0;
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+           int Hkv, int Sq, int Skv, const long long* st, float scale,
+           int causal, int window, cudaStream_t stream) {
+  static std::atomic<unsigned long long> ready{0};
+  auto kernel = flash_wgmma_kernel<T, D>;
+  const int smem = Smem<D>::ALLOC;
+  const int err = prepare<Geo<D>::MOVE_REGS>(ready, kernel, PRODUCER_REGS,
+                                             CONSUMER_REGS, smem);
+  if (err) return err;
+  CUtensorMap mq, mk, mv;
+  CUresult r = encode<T, D>(&mq, q, Sq, H, B, st, BQ);
+  if (r == CUDA_SUCCESS) r = encode<T, D>(&mk, k, Skv, Hkv, B, st + 3, BK);
+  if (r == CUDA_SUCCESS) r = encode<T, D>(&mv, v, Skv, Hkv, B, st + 6, BK);
+  if (r != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(r);
+  dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  kernel<<<grid, NT, smem, stream>>>(
+      mq, mk, mv, static_cast<T*>(o), st[9], st[10], st[11], H, H / Hkv, Sq,
+      Skv, scale * LOG2E, causal, window);
+  return cudaGetLastError();
+}
+
 template <int D>
 int launch_split(const void* q, const void* k, const void* v, void* o, int B,
                  int H, int Hkv, int Sq, int Skv, const long long* st,
                  float scale, int causal, int window, cudaStream_t stream) {
+  static std::atomic<unsigned long long> ready{0};
   auto kernel = flash_wgmma_split_kernel<D>;
   const int smem = SplitSmem<D>::ALLOC;
-  const cudaError_t err =
-      prepare(kernel, SPLIT_PRODUCER_REGS, SPLIT_CONSUMER_REGS, smem);
-  if (err != cudaSuccess) return err;
+  const int err = prepare<Geo<D>::MOVE_REGS>(ready, kernel,
+                                             SPLIT_PRODUCER_REGS,
+                                             SPLIT_CONSUMER_REGS, smem);
+  if (err) return err;
   CUtensorMap mq, mk, mv;
   CUresult r = encode_f32(&mq, q, D, Sq, H, B, st);
   if (r == CUDA_SUCCESS) r = encode_f32(&mk, k, D, Skv, Hkv, B, st + 3);
@@ -711,16 +788,18 @@ int launch_split(const void* q, const void* k, const void* v, void* o, int B,
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int H, int Hkv, int Sq, int Skv, const long long* st,
-             float scale, int causal, int window, cudaStream_t stream) {
-  switch (D) {
-    case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, Sq, Skv, st, scale, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, Sq, Skv, st, scale, causal, window, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
+using Launcher = int (*)(const void*, const void*, const void*, void*, int,
+                         int, int, int, int, const long long*, float, int,
+                         int, cudaStream_t);
+
+// The launcher of an instance: dtype code (0 f32, 1 bf16, 2 f16) by head
+// dim (16, 32, 64, 128).
+constexpr Launcher LAUNCHERS[3][4] = {
+    {launch_split<16>, launch_split<32>, launch_split<64>, launch_split<128>},
+    {launch<__nv_bfloat16, 16>, launch<__nv_bfloat16, 32>,
+     launch<__nv_bfloat16, 64>, launch<__nv_bfloat16, 128>},
+    {launch<__half, 16>, launch<__half, 32>, launch<__half, 64>,
+     launch<__half, 128>}};
 
 }  // namespace
 
@@ -729,9 +808,9 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
 // sequence) of q, k, v and o, in that order; the head-dim stride is 1.  q,
 // k and v need 16-byte aligned bases and sequence/head/batch strides of a
 // multiple of 16 bytes (TMA, and the f32 instance's 16-byte loads); o
-// needs even strides.  D is 64 or 128, Sq and Skv at least 1, B * H at most
-// 65535.  Returns 0, a CUDA error code, or 1000 + the CUresult
-// of a failed tensor-map encoding.
+// needs even strides.  D is 16, 32, 64 or 128, Sq and Skv at least 1,
+// B * H at most 65535.  Returns 0, a CUDA error code, or 1000 + the
+// CUresult of a failed tensor-map encoding.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             const void* v, void* o, int dtype,
                                             int B, int H, int Hkv, int Sq,
@@ -739,16 +818,10 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             const long long* strides,
                                             float scale, int causal,
                                             int window, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      switch (D) {
-        case 64: return launch_split<64>(q, k, v, o, B, H, Hkv, Sq, Skv, strides, scale, causal, window, st);
-        case 128: return launch_split<128>(q, k, v, o, B, H, Hkv, Sq, Skv, strides, scale, causal, window, st);
-        default: return cudaErrorInvalidValue;
-      }
-    case 1: return launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, Hkv, Sq, Skv, strides, scale, causal, window, st);
-    case 2: return launch_d<__half>(D, q, k, v, o, B, H, Hkv, Sq, Skv, strides, scale, causal, window, st);
-    default: return cudaErrorInvalidValue;
-  }
+  const int d = D == 16 ? 0 : D == 32 ? 1 : D == 64 ? 2 : D == 128 ? 3 : -1;
+  if (dtype < 0 || dtype > 2 || d < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return LAUNCHERS[dtype][d](q, k, v, o, B, H, Hkv, Sq, Skv, strides, scale,
+                             causal, window,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -1,24 +1,20 @@
-"""The flash-attention CUDA kernels: build, bind, dispatch, launch.
+"""The flash-attention CUDA kernel: build, bind, dispatch, launch.
 
 Port of ``src/repro/kernels/flash_attention/kernel.py``.  The Pallas kernel
-``_flash_kernel`` becomes hand-written CUDA C++ kernels for ``sm_90a``,
-each library built with ``nvcc`` at first use into ``build/kernels/`` and
-bound through ``ctypes``:
+``_flash_kernel`` becomes a hand-written CUDA C++ kernel for ``sm_90a``,
+``csrc/flash_attention_wgmma.cu``, built with ``nvcc`` at first use into
+``build/kernels/`` and bound through ``ctypes``.  It runs on the tensor
+cores through ``wgmma`` at head dims 16, 32, 64 and 128 (the head dim is
+a template parameter), in two instances: "wgmma" for bf16 and f16
+(TMA-fed tiles), "wgmma_f32" for f32 under the split-precision contract
+(every fp32 operand as bf16 hi/lo parts, three products for each, fp32
+sums).
 
-- ``csrc/flash_attention_wgmma.cu`` at head dims 64 and 128, on the
-  tensor cores through ``wgmma``, in two instances: "wgmma" for bf16 and
-  f16 (TMA-fed tiles), "wgmma_f32" for f32 under the split-precision
-  contract (every fp32 operand as bf16 hi/lo parts, three products for
-  each, fp32 sums);
-- ``csrc/flash_attention.cu`` ("simt") at head dims 16 and 32, in any
-  dtype: fp32 products on the CUDA cores.
-
-:func:`variant` is the rule between them.  It is a dispatch between
-kernels, not a fallback: a failed build or launch raises.  All take any
-batch, head and sequence strides, so the model hands them ``[B, S, H, D]``
-activations as ``[B, H, S, D]`` views without a copy, and all mask their
-own ragged edges: nothing is padded.  The plain version is
-``ref.attention_ref``.
+:func:`variant` names the instance a call takes.  A failed build or
+launch raises.  Both take any batch, head and sequence strides, so the
+model hands them ``[B, S, H, D]`` activations as ``[B, H, S, D]`` views
+without a copy, and both mask their own ragged edges: nothing is padded.
+The plain version is ``ref.attention_ref``.
 """
 
 from __future__ import annotations
@@ -32,44 +28,38 @@ import torch
 from repro_torch.kernels._build import CudaLibrary, check_launch, tma_strides
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: head dims the simt kernel is instantiated for
+#: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
-#: dtypes and head dims the wgmma kernel takes: its bf16/f16 instance and
-#: its f32 (split-precision) instance
+#: the dtypes of its bf16/f16 instance and of its f32 (split-precision) one
 WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 WGMMA_F32_DTYPE = torch.float32
-WGMMA_HEAD_DIMS = (64, 128)
-VARIANTS = ("wgmma", "wgmma_f32", "simt")
+VARIANTS = ("wgmma", "wgmma_f32")
 _CSRC = Path(__file__).resolve().parent / "csrc"
 
 
-def _binder(name: str):
-    def bind(lib: ctypes.CDLL) -> None:
-        fn = getattr(lib, name)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, ctypes.c_float,
-                       i, i, p]
-        fn.restype = ctypes.c_int
-    return bind
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.flash_attention_wgmma_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, ctypes.c_float, i, i,
+                   p]
+    fn.restype = ctypes.c_int
 
 
-LIBRARY = CudaLibrary(_CSRC / "flash_attention.cu",
-                      _binder("flash_attention_launch"))
 #: links libcuda for ``cuTensorMapEncodeTiled``
-WGMMA_LIBRARY = CudaLibrary(_CSRC / "flash_attention_wgmma.cu",
-                            _binder("flash_attention_wgmma_launch"),
+WGMMA_LIBRARY = CudaLibrary(_CSRC / "flash_attention_wgmma.cu", _bind,
                             extra_flags=("-lcuda",))
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernel runs a call: at head dim 64 or 128 ``"wgmma"`` for
-    bf16/f16 and ``"wgmma_f32"`` for f32; ``"simt"`` otherwise."""
-    if head_dim in WGMMA_HEAD_DIMS:
-        if dtype in WGMMA_DTYPES:
-            return "wgmma"
-        if dtype == WGMMA_F32_DTYPE:
-            return "wgmma_f32"
-    return "simt"
+    """The instance a call takes, at every head dim of ``HEAD_DIMS``:
+    ``"wgmma"`` for bf16/f16, ``"wgmma_f32"`` for f32."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not in {HEAD_DIMS}")
+    if dtype in WGMMA_DTYPES:
+        return "wgmma"
+    if dtype == WGMMA_F32_DTYPE:
+        return "wgmma_f32"
+    raise TypeError(f"flash_attention kernel does not take {dtype}")
 
 
 def wgmma_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -110,76 +100,43 @@ def _check(q, k, v) -> Tuple[int, int, int, int, int, int, int]:
     return code, B, H, Hkv, Sq, Skv, D
 
 
-def _launch(lib: CudaLibrary, name: str, q, k, v, o, strides, code, B, H,
-            Hkv, Sq, Skv, D, scale, causal, window) -> None:
+def _launch(q, k, v, o, strides, code, B, H, Hkv, Sq, Skv, D, scale, causal,
+            window) -> None:
     st = (ctypes.c_longlong * 12)(*strides)
-    fn = getattr(lib.get(), name)
+    fn = WGMMA_LIBRARY.get().flash_attention_wgmma_launch
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  code, B, H, Hkv, Sq, Skv, D, ctypes.addressof(st),
                  float(scale), int(bool(causal)), int(window), stream)
     if err >= 1000:
-        raise RuntimeError(f"flash_attention {name}: cuTensorMapEncodeTiled "
-                           f"failed with CUresult {err - 1000}")
-    check_launch(err, f"flash_attention ({name})")
-
-
-def flash_attention_simt(q, k, v, scale: float, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
-    """Launch ``csrc/flash_attention.cu`` (any dtype the op takes, head dims
-    16-128: the dispatch sends it 16 and 32).  Bumps
-    ``flash_attention_cuda.launches`` and its ``"simt"`` count."""
-    code, B, H, Hkv, Sq, Skv, D = _check(q, k, v)
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    o = torch.empty_like(q)      # keeps q's strides: a [B,S,H,D] view stays one
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    _launch(LIBRARY, "flash_attention_launch", q, k, v, o, strides, code, B,
-            H, Hkv, Sq, Skv, D, scale, causal, window)
-    _count("simt")
-    return o
-
-
-def flash_attention_wgmma(q, k, v, scale: float, causal: bool = True,
-                          window: int = 0) -> torch.Tensor:
-    """Launch ``csrc/flash_attention_wgmma.cu`` at head dim 64 or 128: its
-    bf16/f16 instance, or for f32 its split-precision instance.  An
-    operand TMA (or the f32 instance's 16-byte loads) cannot read as it
-    lies is copied first (:func:`wgmma_operands`); the output keeps q's
-    strides.  Bumps ``flash_attention_cuda.launches`` and the count of
-    the instance's variant, ``"wgmma"`` or ``"wgmma_f32"``."""
-    code, B, H, Hkv, Sq, Skv, D = _check(q, k, v)
-    name = variant(q.dtype, D)
-    if name == "simt":
-        raise ValueError(f"the wgmma kernel takes "
-                         f"{WGMMA_DTYPES + (WGMMA_F32_DTYPE,)} at head dims "
-                         f"{WGMMA_HEAD_DIMS}, got {q.dtype}, D={D}")
-    if Sq < 1 or Skv < 1:
-        raise ValueError(f"empty sequence: Sq={Sq}, Skv={Skv}")
-    q, k, v, o, strides = wgmma_operands(q, k, v)
-    _launch(WGMMA_LIBRARY, "flash_attention_wgmma_launch", q, k, v, o,
-            strides, code, B, H, Hkv, Sq, Skv, D, scale, causal, window)
-    _count(name)
-    return o
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "
+                           f"with CUresult {err - 1000}")
+    check_launch(err, "flash_attention")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
-    """Launch the kernel :func:`variant` picks, on the current stream (no
-    synchronisation).
+    """Launch ``csrc/flash_attention_wgmma.cu`` on the current stream (no
+    synchronisation): its bf16/f16 instance, or for f32 its
+    split-precision instance.
 
     ``q [B, H, Sq, D]``, ``k, v [B, Hkv, Skv, D]`` on one CUDA device, one
-    dtype (f32, bf16 or f16); returns ``o`` shaped like ``q`` and, where q
-    is dense, strided like it.  Raises on anything else, and when the
+    dtype (f32, bf16 or f16), D in ``HEAD_DIMS``; returns ``o`` shaped
+    like ``q`` and, where q is dense, strided like it.  An operand TMA (or
+    the f32 instance's 16-byte loads) cannot read as it lies is copied
+    first (:func:`wgmma_operands`).  Raises on anything else, and when the
     build or the launch fails.  ``flash_attention_cuda.launches`` counts
-    every launch, ``flash_attention_cuda.by_variant`` each kernel's."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_cuda needs CUDA tensors, "
-                         f"got {q.device}")
-    if variant(q.dtype, int(q.shape[-1])) != "simt":
-        return flash_attention_wgmma(q, k, v, scale, causal, window)
-    return flash_attention_simt(q, k, v, scale, causal, window)
+    every launch, ``flash_attention_cuda.by_variant`` each instance's."""
+    code, B, H, Hkv, Sq, Skv, D = _check(q, k, v)
+    if Sq < 1 or Skv < 1:
+        raise ValueError(f"empty sequence: Sq={Sq}, Skv={Skv}")
+    q, k, v, o, strides = wgmma_operands(q, k, v)
+    _launch(q, k, v, o, strides, code, B, H, Hkv, Sq, Skv, D, scale, causal,
+            window)
+    _count(variant(q.dtype, D))
+    return o
 
 
 def _count(name: str) -> None:

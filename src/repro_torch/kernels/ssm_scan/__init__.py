@@ -1,7 +1,6 @@
-"""Chunked SSD (mamba2) scan from a zero state.  Port of
+"""Chunked SSD (mamba2) scan from a given or a zero state.  Port of
 ``src/repro/kernels/ssm_scan/``: ``csrc/ssd_scan_wgmma.cu`` (bf16 tensor
-cores) and ``csrc/ssd_scan.cu`` (CUDA cores) are the CUDA kernels,
-``kernel.py`` their ctypes binding and the rule between them, ``ops.py``
+cores) is the CUDA kernel, ``kernel.py`` its ctypes binding, ``ops.py``
 the public op, ``ref.py`` the plain PyTorch versions (the chunked scan and
 the literal recurrence)."""
 

@@ -2,12 +2,12 @@
 // a given or a zero state: TMA-fed wgmma tiles, one CTA per stream.
 //
 // Replaces repro/kernels/ssm_scan/kernel.py::_ssd_kernel (the Pallas TPU
-// kernel) at P = N = 64 and a configured chunk of 128 steps, for any L and
+// kernel) at every head dim P and state dim N up to 64 (multiples of 8; the
+// wrapper pads others with zeros) and any configured chunk, for any L and
 // any B/C dtype, in two instances: bf16 B and C (ssd_scan_wgmma_launch),
 // and f32 or f16 B and C (ssd_scan_split_launch, the split instance); each
-// at two chunk tiles, 128 steps (any L) and 64 (the short kernel, for
-// L <= 64; see below).  ssd_scan.cu beside it keeps the narrower dims and
-// chunks under 128.
+// at two chunk tiles, 128 steps (for L > 64) and 64 (the short kernel, for
+// L <= 64; see below).
 // Same function: for every (batch b, head h) stream, with x [B, L, H, P]
 // f32 (dt folded in), the decay a [B, L, H] f32 and B, C [B, L, N] shared
 // by all heads (read at batch b), per chunk of Q steps (the tile: 128, or
@@ -22,7 +22,18 @@
 // with zeros) and are not written: a ragged tail, and a sequence shorter
 // than one chunk, which is one chunk padded to the tile.  That is the
 // reference's arithmetic at Q = min(chunk, L): the padded steps add 0 to
-// cum and nothing to y or the state; only the rounding differs.
+// cum and nothing to y or the state; only the rounding differs.  The
+// chunk only sets the blocking of one linear recurrence, so the tile need
+// not be the configured chunk: a configured chunk of 16 runs at the tile
+// too, and computes the same function up to rounding.
+//
+// Tiles are 64 wide along P and N whatever the call's P and N.  The tensor
+// maps carry the real P and N, so TMA's out-of-bounds fill writes zeros in
+// the columns past them; zero columns of x, B and C, and the zero rows and
+// columns of the state past P and N, add nothing to y or to the state.
+// The initial state is read, and y and the final state written, only
+// inside the real P and N.  At P = N = 64 each kernel runs as its own
+// instance (FULL), in which those masks fold away.
 // Outputs: y [B, L, H, P] f32 and the final state [B, H, P, N] f32.  The
 // state before the first step is the initial state [B, H, P, N] f32 where
 // one is given, else zero: warpgroup 0 loads it into its state
@@ -138,8 +149,8 @@ namespace {
 
 using namespace hopper;
 
-constexpr int P = 64;           // head dim
-constexpr int N = 64;           // state dim
+constexpr int TP = 64;          // the tiles' width along the head dim P
+constexpr int TN = 64;          // and along the state dim N
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -153,10 +164,10 @@ struct Tile {
   static constexpr int NC = 2 * Q;    // consumer threads: Q / 64 warpgroups
   // and the producer warpgroup at Q 128
   static constexpr int THREADS = Q == 128 ? NC + 128 : NC;
-  static constexpr int X_BYTES = Q * P * 4;      // f32 [Q][P], unswizzled
-  static constexpr int BC_BYTES = Q * N * 2;     // bf16 [Q][N], 128B swizzle
+  static constexpr int X_BYTES = Q * TP * 4;     // f32 [Q][TP], unswizzled
+  static constexpr int BC_BYTES = Q * TN * 2;    // bf16 [Q][TN], 128B swizzle
   static constexpr int T_BYTES = Q * 64 * 2;     // a bf16 split tile [Q][64]
-  static constexpr int S_BYTES = P * N * 2;      // a bf16 state tile [P][N]
+  static constexpr int S_BYTES = TP * TN * 2;    // a bf16 state tile [TP][TN]
   static constexpr int CUM_BYTES = 3 * Q * 4;    // cum, exp(cum), dout
   static constexpr int X_OFF = 0;
   // B/C: four tiles, two stages of B and C (bf16 instance at Q 128; at Q
@@ -190,11 +201,11 @@ static_assert(2 * (T64::ALLOC + 1024) <= 233472, "two short CTAs an SM");
 // K-major 128-byte-swizzled operand: rows of 64 bf16, 8-row groups 1024
 // bytes apart.  MN-major: the same tile read along its rows.
 __device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
-  return sw128_desc(addr, 16, 1024);
+  return sw_desc<128>(addr, 16, 1024);
 }
 template <int Q>
 __device__ __forceinline__ uint64_t mnmajor(uint32_t addr) {
-  return sw128_desc(addr, Q * 128, 1024);
+  return sw_desc<128>(addr, Q * 128, 1024);
 }
 
 struct Ctx {
@@ -205,6 +216,7 @@ struct Ctx {
   float* state;             // the final state of this stream [P][N]
   const float* init;        // its initial state [P][N], or null (zero)
   int L, n_chunks;
+  int P, N;                 // the real head and state dims (<= 64)
 };
 
 template <int Q>
@@ -247,8 +259,10 @@ __device__ __forceinline__ uint32_t c_tile(uint32_t base, int s) {
 // state before the first chunk is cx.init (else zero); a template
 // argument, so that the scan from zero compiles as it did without it.
 // SPLIT: B and C arrive as bf16 hi/lo tiles, and every product with one
-// of them takes three products (hi.hi + hi.lo + lo.hi).
-template <int Q, int W, bool FROM_STATE, bool SPLIT>
+// of them takes three products (hi.hi + hi.lo + lo.hi).  FULL: P = N =
+// 64, the tiles' widths, known when compiling, so that the masks past the
+// real P and N fold away: with them the full-width call ran 2% slower.
+template <int Q, int W, bool FROM_STATE, bool SPLIT, bool FULL>
 __device__ __forceinline__ void consume(const Ctx& cx) {
   using T = Tile<Q>;
   constexpr int NC = T::NC;
@@ -260,18 +274,26 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
   const int i0 = W * 64 + rl;
   const int cq = (lane % 4) * 2;        // first column in each 8-group
   const uint32_t base = cx.base;
+  const int P = FULL ? TP : cx.P, N = FULL ? TN : cx.N;
 
   // the state (warpgroup 0): register 4 g + 2 r + c holds row rl + 8 r,
-  // column 8 g + cq + c, as the final store below writes it
+  // column 8 g + cq + c, as the final store below writes it; zero past the
+  // real P and N (which are multiples of 8)
   float S[32];
   if (W == 0 && FROM_STATE) {
 #pragma unroll
     for (int g = 0; g < 8; ++g) {
       const int n = g * 8 + cq;
+      const float2 zero = make_float2(0.f, 0.f);
+      const bool in = FULL || n < N;
       const float2 s0 =
-          *reinterpret_cast<const float2*>(cx.init + rl * N + n);
+          in && (FULL || rl < P)
+              ? *reinterpret_cast<const float2*>(cx.init + rl * N + n)
+              : zero;
       const float2 s1 =
-          *reinterpret_cast<const float2*>(cx.init + (rl + 8) * N + n);
+          in && (FULL || rl + 8 < P)
+              ? *reinterpret_cast<const float2*>(cx.init + (rl + 8) * N + n)
+              : zero;
       S[4 * g] = s0.x;
       S[4 * g + 1] = s0.y;
       S[4 * g + 2] = s1.x;
@@ -328,7 +350,8 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
     for (int k = 0; k < 4; ++k) {
       const int c = t + NC * k;
       const int row = c >> 3, q = c & 7;
-      const float4* src = reinterpret_cast<const float4*>(xf + row * P + q * 8);
+      const float4* src =
+          reinterpret_cast<const float4*>(xf + row * TP + q * 8);
       const float4 v0 = src[0], v1 = src[1];
       const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
       const float dj = dout[row];
@@ -457,16 +480,16 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
     }
     fence_regs(y);
 
-    // 5. store y (rows past L never), release the slot, wait for the other
-    // group before the split tiles are rewritten
+    // 5. store y (rows past L and columns past P never), release the slot,
+    // wait for the other group before the split tiles are rewritten
     float* yb = cx.y + static_cast<long long>(t0) * cx.yst;
 #pragma unroll
     for (int g = 0; g < 8; ++g) {
       const int col = g * 8 + cq;
-      if (t0 + i0 < cx.L)
+      if ((FULL || col < P) && t0 + i0 < cx.L)
         *reinterpret_cast<float2*>(yb + i0 * cx.yst + col) =
             make_float2(y[4 * g], y[4 * g + 1]);
-      if (t0 + i0 + 8 < cx.L)
+      if ((FULL || col < P) && t0 + i0 + 8 < cx.L)
         *reinterpret_cast<float2*>(yb + (i0 + 8) * cx.yst + col) =
             make_float2(y[4 * g + 2], y[4 * g + 3]);
     }
@@ -485,10 +508,12 @@ __device__ __forceinline__ void consume(const Ctx& cx) {
 #pragma unroll
     for (int g = 0; g < 8; ++g) {
       const int n = g * 8 + cq;
-      *reinterpret_cast<float2*>(cx.state + rl * N + n) =
-          make_float2(S[4 * g], S[4 * g + 1]);
-      *reinterpret_cast<float2*>(cx.state + (rl + 8) * N + n) =
-          make_float2(S[4 * g + 2], S[4 * g + 3]);
+      if (FULL || (n < N && rl < P))
+        *reinterpret_cast<float2*>(cx.state + rl * N + n) =
+            make_float2(S[4 * g], S[4 * g + 1]);
+      if (FULL || (n < N && rl + 8 < P))
+        *reinterpret_cast<float2*>(cx.state + (rl + 8) * N + n) =
+            make_float2(S[4 * g + 2], S[4 * g + 3]);
     }
   }
 }
@@ -585,16 +610,16 @@ __device__ __forceinline__ void chunk_cumsum(uint32_t base,
 }
 
 // The 128-step instance: any L, chunk after chunk, through the ring.
-template <bool FROM_STATE, bool SPLIT>
+template <bool FROM_STATE, bool SPLIT, bool FULL>
 __global__ void __launch_bounds__(NT, 1)
 ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                  const __grid_constant__ CUtensorMap tm_b,
                  const __grid_constant__ CUtensorMap tm_c,
                  const float* __restrict__ a, float* __restrict__ y,
                  float* __restrict__ state_out,
-                 const float* __restrict__ init_state, int L, int H,
-                 long long asb, long long ast, long long ash, long long ysb,
-                 long long yst, long long ysh) {
+                 const float* __restrict__ init_state, int L, int H, int P,
+                 int N, long long asb, long long ast, long long ash,
+                 long long ysb, long long yst, long long ysh) {
   using T = T128;
   constexpr int Q = 128, NC = T::NC;
   extern __shared__ unsigned char smem_raw[];
@@ -639,9 +664,9 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
          state_out + static_cast<long long>(blockIdx.x) * P * N,
          init_state ? init_state + static_cast<long long>(blockIdx.x) * P * N
                     : nullptr,
-         L, n_chunks};
-  if (threadIdx.x < 128) consume<Q, 0, FROM_STATE, SPLIT>(cx);
-  else consume<Q, 1, FROM_STATE, SPLIT>(cx);
+         L, n_chunks, P, N};
+  if (threadIdx.x < 128) consume<Q, 0, FROM_STATE, SPLIT, FULL>(cx);
+  else consume<Q, 1, FROM_STATE, SPLIT, FULL>(cx);
 }
 
 // The 64-step instance, for 1 <= L <= 64: one chunk, one stage, one
@@ -649,16 +674,16 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 // 255 registers and two CTAs share an SM).  Warp 0 issues the chunk's
 // loads and computes its cumsum while the TMA copies land; then all four
 // warps run warpgroup 0's body of the 128-step instance on rows 0-63.
-template <bool FROM_STATE, bool SPLIT>
+template <bool FROM_STATE, bool SPLIT, bool FULL>
 __global__ void __launch_bounds__(T64::NC, 2)
 ssd_short_kernel(const __grid_constant__ CUtensorMap tm_x,
                  const __grid_constant__ CUtensorMap tm_b,
                  const __grid_constant__ CUtensorMap tm_c,
                  const float* __restrict__ a, float* __restrict__ y,
                  float* __restrict__ state_out,
-                 const float* __restrict__ init_state, int L, int H,
-                 long long asb, long long ast, long long ash, long long ysb,
-                 long long yst, long long ysh) {
+                 const float* __restrict__ init_state, int L, int H, int P,
+                 int N, long long asb, long long ast, long long ash,
+                 long long ysb, long long yst, long long ysh) {
   constexpr int Q = 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* gbase;
@@ -678,13 +703,14 @@ ssd_short_kernel(const __grid_constant__ CUtensorMap tm_x,
          state_out + static_cast<long long>(blockIdx.x) * P * N,
          init_state ? init_state + static_cast<long long>(blockIdx.x) * P * N
                     : nullptr,
-         L, 1};
-  consume<Q, 0, FROM_STATE, SPLIT>(cx);
+         L, 1, P, N};
+  consume<Q, 0, FROM_STATE, SPLIT, FULL>(cx);
 }
 
-// The split instance's pre-pass: B and C (f32 or f16, [Bsz, L, 64] with
-// the caller's strides) into bf16 planes [4][Bsz][L][64]: B hi, B lo, C hi,
-// C lo.  Once per batch, not per stream: all H heads read the same rows.
+// The split instance's pre-pass: B and C (f32 or f16, [Bsz, L, N] with
+// the caller's strides, N a multiple of 8) into bf16 planes [4][Bsz][L][N]:
+// B hi, B lo, C hi, C lo.  Once per batch, not per stream: all H heads read
+// the same rows.
 // An f16 value splits exactly (its 11 significant bits fit in two bf16
 // parts).  One thread per 8 values.
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
@@ -709,14 +735,15 @@ __global__ void split_bc_kernel(const T* __restrict__ Bm,
                                 const T* __restrict__ Cm, long long bsb,
                                 long long bst, long long csb, long long cst,
                                 __nv_bfloat16* __restrict__ out, int Bsz,
-                                int L) {
+                                int L, int N) {
   const long long rows = static_cast<long long>(Bsz) * L;
+  const int cpr = N / 8;                  // chunks of 8 values a row
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= 2 * rows * (N / 8)) return;
-  const int q = static_cast<int>(i % (N / 8));
-  const long long r = (i / (N / 8)) % rows;
-  const int which = static_cast<int>(i / (rows * (N / 8)));   // 0 B, 1 C
+  if (i >= 2 * rows * cpr) return;
+  const int q = static_cast<int>(i % cpr);
+  const long long r = (i / cpr) % rows;
+  const int which = static_cast<int>(i / (rows * cpr));   // 0 B, 1 C
   const long long b = r / L, t = r % L;
   const T* src = which ? Cm + b * csb + t * cst : Bm + b * bsb + t * bst;
   float v[8];
@@ -733,10 +760,11 @@ __global__ void split_bc_kernel(const T* __restrict__ Bm,
 
 // ---- host side -------------------------------------------------------------
 
-// x [B, L, H, 64] f32 as a 4-D map (P, L, H, B), boxes of 64 x Q steps,
-// unswizzled; st: its (batch, step, head) element strides.
-CUresult encode_x(CUtensorMap* map, const void* x, int L, int H, int B, int Q,
-                  const long long* st) {
+// x [B, L, H, P] f32 as a 4-D map (P, L, H, B), boxes of 64 x Q steps
+// (zeros past P and L), unswizzled; st: its (batch, step, head) element
+// strides.
+CUresult encode_x(CUtensorMap* map, const void* x, int L, int H, int B,
+                  int P, int Q, const long long* st) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(P),
                               static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(H),
@@ -744,7 +772,7 @@ CUresult encode_x(CUtensorMap* map, const void* x, int L, int H, int B, int Q,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[1]) * 4,
                                  static_cast<cuuint64_t>(st[2]) * 4,
                                  static_cast<cuuint64_t>(st[0]) * 4};
-  const cuuint32_t box[4] = {P, static_cast<cuuint32_t>(Q), 1, 1};
+  const cuuint32_t box[4] = {TP, static_cast<cuuint32_t>(Q), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
                                 const_cast<void*>(x), dims, strides, box,
@@ -754,16 +782,17 @@ CUresult encode_x(CUtensorMap* map, const void* x, int L, int H, int B, int Q,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// B or C [B, L, 64] bf16 as a 3-D map (N, L, B), boxes of 64 x Q steps,
-// 128-byte swizzle; sb, st: its batch and step element strides.
-CUresult encode_bc(CUtensorMap* map, const void* p, int L, int B, int Q,
-                   long long sb, long long st) {
+// B or C [B, L, N] bf16 as a 3-D map (N, L, B), boxes of 64 x Q steps
+// (zeros past N and L), 128-byte swizzle; sb, st: its batch and step
+// element strides.
+CUresult encode_bc(CUtensorMap* map, const void* p, int L, int B, int N,
+                   int Q, long long sb, long long st) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[3] = {N, static_cast<cuuint32_t>(Q), 1};
+  const cuuint32_t box[3] = {TN, static_cast<cuuint32_t>(Q), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                                 const_cast<void*>(p), dims, strides, box,
@@ -777,12 +806,12 @@ constexpr int ENCODE_ERROR = 1000;   // + CUresult of cuTensorMapEncodeTiled
 constexpr int MAX_DEVICES = 64;
 
 // both kernels' type (they take the same parameters)
-using ScanKernel = decltype(&ssd_wgmma_kernel<false, false>);
+using ScanKernel = decltype(&ssd_wgmma_kernel<false, false, false>);
 
-template <int Q, bool FROM_STATE, bool SPLIT>
+template <int Q, bool FROM_STATE, bool SPLIT, bool FULL>
 ScanKernel kernel_of() {
-  if constexpr (Q == 128) return ssd_wgmma_kernel<FROM_STATE, SPLIT>;
-  else return ssd_short_kernel<FROM_STATE, SPLIT>;
+  if constexpr (Q == 128) return ssd_wgmma_kernel<FROM_STATE, SPLIT, FULL>;
+  else return ssd_short_kernel<FROM_STATE, SPLIT, FULL>;
 }
 
 // Set up one kernel instance on the current device, once per device: its
@@ -791,9 +820,9 @@ ScanKernel kernel_of() {
 // the kernel must start with enough of them, or the consumers'
 // setmaxnreg.inc would wait forever.  The 64-step CTA does not use
 // setmaxnreg.  Returns 0 or a CUDA error code.
-template <int Q, bool FROM_STATE, bool SPLIT>
+template <int Q, bool FROM_STATE, bool SPLIT, bool FULL>
 int prepare() {
-  const ScanKernel kernel = kernel_of<Q, FROM_STATE, SPLIT>();
+  const ScanKernel kernel = kernel_of<Q, FROM_STATE, SPLIT, FULL>();
   static std::atomic<unsigned long long> ready{0};   // a bit per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -816,20 +845,20 @@ int prepare() {
 
 // Launch one instance of the scan (Q: its chunk tile).  The split instance
 // reads all four B/C planes through mb (mc is not read).
-template <int Q, bool SPLIT>
+template <int Q, bool FROM_STATE, bool SPLIT, bool FULL>
 int launch_scan(const CUtensorMap& mx, const CUtensorMap& mb,
                 const CUtensorMap& mc, const void* a, void* y,
                 void* state_out, const void* init_state, int Bsz, int L,
-                int H, const long long* st, cudaStream_t stream) {
-  const ScanKernel kernel = init_state ? kernel_of<Q, true, SPLIT>()
-                                       : kernel_of<Q, false, SPLIT>();
-  const int err = init_state ? prepare<Q, true, SPLIT>()
-                             : prepare<Q, false, SPLIT>();
+                int H, int P, int N, const long long* st,
+                cudaStream_t stream) {
+  const int err = prepare<Q, FROM_STATE, SPLIT, FULL>();
   if (err) return err;
-  kernel<<<Bsz * H, Tile<Q>::THREADS, Tile<Q>::ALLOC, stream>>>(
-      mx, mb, mc, static_cast<const float*>(a), static_cast<float*>(y),
-      static_cast<float*>(state_out), static_cast<const float*>(init_state),
-      L, H, st[3], st[4], st[5], st[10], st[11], st[12]);
+  kernel_of<Q, FROM_STATE, SPLIT, FULL>()
+      <<<Bsz * H, Tile<Q>::THREADS, Tile<Q>::ALLOC, stream>>>(
+          mx, mb, mc, static_cast<const float*>(a), static_cast<float*>(y),
+          static_cast<float*>(state_out),
+          static_cast<const float*>(init_state), L, H, P, N, st[3], st[4],
+          st[5], st[10], st[11], st[12]);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -838,27 +867,45 @@ int launch_scan(const CUtensorMap& mx, const CUtensorMap& mb,
 template <int Q, bool SPLIT>
 int run_scan(const void* x, const void* a, const void* Bm, const void* Cm,
              void* y, void* state_out, const void* init_state, int Bsz,
-             int L, int H, const long long* st, void* stream) {
+             int L, int H, int P, int N, const long long* st, void* stream) {
   CUtensorMap mx, mb, mc;
-  CUresult r = encode_x(&mx, x, L, H, Bsz, Q, st);
-  // the split instance's planes [4][Bsz][L][64] are 4 Bsz batches
+  CUresult r = encode_x(&mx, x, L, H, Bsz, P, Q, st);
+  // the split instance's planes [4][Bsz][L][N] are 4 Bsz batches
   if (r == CUDA_SUCCESS)
-    r = encode_bc(&mb, Bm, L, SPLIT ? 4 * Bsz : Bsz, Q, st[6], st[7]);
+    r = encode_bc(&mb, Bm, L, SPLIT ? 4 * Bsz : Bsz, N, Q, st[6], st[7]);
   if (r == CUDA_SUCCESS && !SPLIT)
-    r = encode_bc(&mc, Cm, L, Bsz, Q, st[8], st[9]);
+    r = encode_bc(&mc, Cm, L, Bsz, N, Q, st[8], st[9]);
   if (r != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(r);
-  return launch_scan<Q, SPLIT>(mx, mb, SPLIT ? mb : mc, a, y, state_out,
-                               init_state, Bsz, L, H, st,
-                               static_cast<cudaStream_t>(stream));
+  const CUtensorMap& mcs = SPLIT ? mb : mc;
+  const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  const bool full = P == TP && N == TN;
+  if (init_state)
+    return full ? launch_scan<Q, true, SPLIT, true>(mx, mb, mcs, a, y,
+                                                    state_out, init_state,
+                                                    Bsz, L, H, P, N, st, strm)
+                : launch_scan<Q, true, SPLIT, false>(mx, mb, mcs, a, y,
+                                                     state_out, init_state,
+                                                     Bsz, L, H, P, N, st,
+                                                     strm);
+  return full ? launch_scan<Q, false, SPLIT, true>(mx, mb, mcs, a, y,
+                                                   state_out, init_state, Bsz,
+                                                   L, H, P, N, st, strm)
+              : launch_scan<Q, false, SPLIT, false>(mx, mb, mcs, a, y,
+                                                    state_out, init_state,
+                                                    Bsz, L, H, P, N, st,
+                                                    strm);
 }
+
+// A head or state dim the kernel takes: a multiple of 8 up to the tile.
+bool dim_ok(int d, int tile) { return d >= 8 && d <= tile && d % 8 == 0; }
 
 template <int Q, bool FROM_STATE, bool SPLIT>
 int ctas_per_sm() {
-  const int err = prepare<Q, FROM_STATE, SPLIT>();
+  const int err = prepare<Q, FROM_STATE, SPLIT, true>();
   if (err) return -err;
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, kernel_of<Q, FROM_STATE, SPLIT>(), Tile<Q>::THREADS,
+      &n, kernel_of<Q, FROM_STATE, SPLIT, true>(), Tile<Q>::THREADS,
       Tile<Q>::ALLOC);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
@@ -866,10 +913,9 @@ using CtasFn = int (*)();
 
 }  // namespace
 
-// The same interface as ssd_scan_launch (ssd_scan.cu), for what this kernel
-// takes: bc_dtype 1 (bf16), P = N = 64, L >= 1, and Q_ the chunk tile:
-// 128 (the configured chunk: any L, a sequence shorter than one chunk is
-// one chunk padded with steps of a = 1 and x = B = C = 0) or 64 (the short
+// bc_dtype 1 (bf16), P and N multiples of 8 from 8 to 64, L >= 1, and Q_
+// the chunk tile: 128 (any L, a sequence shorter than one chunk is one
+// chunk padded with steps of a = 1 and x = B = C = 0) or 64 (the short
 // instance, for L <= 64, padded to 64 steps the same way).  strides holds
 // 13 element strides: x (batch, step, head), a (batch, step, head), B
 // (batch, step), C (batch, step), y (batch, step, head); the innermost
@@ -886,14 +932,14 @@ extern "C" int ssd_scan_wgmma_launch(const void* x, const void* a,
                                      int Bsz, int L, int H, int P_, int N_,
                                      int Q_, const long long* st,
                                      void* stream) {
-  if (bc_dtype != 1 || P_ != P || N_ != N || L < 1 ||
+  if (bc_dtype != 1 || !dim_ok(P_, TP) || !dim_ok(N_, TN) || L < 1 ||
       !(Q_ == 128 || (Q_ == 64 && L <= 64)))
     return static_cast<int>(cudaErrorInvalidValue);
   return Q_ == 128
              ? run_scan<128, false>(x, a, Bm, Cm, y, state_out, init_state,
-                                    Bsz, L, H, st, stream)
+                                    Bsz, L, H, P_, N_, st, stream)
              : run_scan<64, false>(x, a, Bm, Cm, y, state_out, init_state,
-                                   Bsz, L, H, st, stream);
+                                   Bsz, L, H, P_, N_, st, stream);
 }
 
 // How many CTAs of an instance (Q_ 128 or 64, split 0 or 1, from_state 0
@@ -911,16 +957,17 @@ extern "C" int ssd_scan_wgmma_ctas_per_sm(int Q_, int split,
 }
 
 // The split instance's pre-pass: B and C (bc_dtype 0 f32 or 2 f16, [Bsz,
-// L, 64]; st holds their batch and step element strides, B's then C's,
-// with unit stride along N, 16-byte aligned bases and strides of a
-// multiple of 16 bytes) into planes, 4 * Bsz * L * 64 bf16 values,
-// 16-byte aligned: B hi, B lo, C hi, C lo, each [Bsz, L, 64].  Returns 0
-// or a CUDA error code.
+// L, N], N a multiple of 8 from 8 to 64; st holds their batch and step
+// element strides, B's then C's, with unit stride along N, 16-byte aligned
+// bases and strides of a multiple of 16 bytes) into planes, 4 * Bsz * L *
+// N bf16 values, 16-byte aligned: B hi, B lo, C hi, C lo, each [Bsz, L,
+// N].  Returns 0 or a CUDA error code.
 extern "C" int ssd_scan_split_bc_launch(const void* Bm, const void* Cm,
-                                        int bc_dtype, int Bsz, int L,
+                                        int bc_dtype, int Bsz, int L, int N,
                                         const long long* st, void* planes,
                                         void* stream) {
-  if ((bc_dtype != 0 && bc_dtype != 2) || L < 1 || planes == nullptr)
+  if ((bc_dtype != 0 && bc_dtype != 2) || L < 1 || !dim_ok(N, TN) ||
+      planes == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t strm = static_cast<cudaStream_t>(stream);
   auto* out = static_cast<__nv_bfloat16*>(planes);
@@ -929,11 +976,11 @@ extern "C" int ssd_scan_split_bc_launch(const void* Bm, const void* Cm,
   if (bc_dtype == 0)
     split_bc_kernel<float><<<blocks, 256, 0, strm>>>(
         static_cast<const float*>(Bm), static_cast<const float*>(Cm), st[0],
-        st[1], st[2], st[3], out, Bsz, L);
+        st[1], st[2], st[3], out, Bsz, L, N);
   else
     split_bc_kernel<__half><<<blocks, 256, 0, strm>>>(
         static_cast<const __half*>(Bm), static_cast<const __half*>(Cm),
-        st[0], st[1], st[2], st[3], out, Bsz, L);
+        st[0], st[1], st[2], st[3], out, Bsz, L, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -948,12 +995,12 @@ extern "C" int ssd_scan_split_launch(const void* x, const void* a,
                                      int Bsz, int L, int H, int P_, int N_,
                                      int Q_, const long long* st,
                                      void* stream) {
-  if ((bc_dtype != 0 && bc_dtype != 2) || P_ != P || N_ != N || L < 1 ||
-      !(Q_ == 128 || (Q_ == 64 && L <= 64)))
+  if ((bc_dtype != 0 && bc_dtype != 2) || !dim_ok(P_, TP) ||
+      !dim_ok(N_, TN) || L < 1 || !(Q_ == 128 || (Q_ == 64 && L <= 64)))
     return static_cast<int>(cudaErrorInvalidValue);
   return Q_ == 128
              ? run_scan<128, true>(x, a, Bm, Cm, y, state_out, init_state,
-                                   Bsz, L, H, st, stream)
+                                   Bsz, L, H, P_, N_, st, stream)
              : run_scan<64, true>(x, a, Bm, Cm, y, state_out, init_state,
-                                  Bsz, L, H, st, stream);
+                                  Bsz, L, H, P_, N_, st, stream);
 }

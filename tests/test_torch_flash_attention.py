@@ -2,13 +2,13 @@
 against the reference's Pallas kernel (interpret mode) and its
 ``attention_ref``, on the cases of ``tests/test_kernels.py``.
 
-On the CPU the op runs the kernel's plain version; the CUDA kernels
-themselves are held to that version on the card by ``chip_smoke.py``.
-Here also: which kernel a call takes, what TMA can read as it lies, and a
-plain emulation of the f32 wgmma instance's split-precision arithmetic
-held to the reference.  Tolerances are the reference suite's: rtol/atol
-2e-5 for f32, 2e-2 for bf16; the split emulation at 1e-4 (the card's
-K2 f32 tolerance).
+On the CPU the op runs the kernel's plain version; the CUDA kernel itself
+is held to that version on the card by ``chip_smoke.py``.
+Here also: which instance a call takes, what TMA can read as it lies, and
+a plain emulation of the f32 wgmma instance's split-precision arithmetic
+held to the reference, at every head dim.  Tolerances are the reference
+suite's: rtol/atol 2e-5 for f32, 2e-2 for bf16; the split emulation at
+1e-4 (the card's K2 f32 tolerance).
 """
 
 import numpy as np
@@ -110,13 +110,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                    torch.float16])
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_dispatch_rule(dtype, D):
-    """At head dims 64 and 128 bf16/f16 take the wgmma kernel's 16-bit
-    instance and f32 its split-precision instance; the narrow head dims
-    keep the simt kernel in every dtype."""
-    if D not in (64, 128):
-        want = "simt"
-    else:
-        want = "wgmma_f32" if dtype == torch.float32 else "wgmma"
+    """At every head dim bf16/f16 take the wgmma kernel's 16-bit instance
+    and f32 its split-precision instance, the narrow head dims 16 and 32
+    included."""
+    want = "wgmma_f32" if dtype == torch.float32 else "wgmma"
     assert K2.variant(dtype, D) == want
 
 
@@ -135,13 +132,13 @@ def test_every_model_head_dim_in_bf16_takes_the_wgmma_kernel():
 @pytest.mark.parametrize("reduced", [False, True])
 def test_every_config_in_fp32_takes_a_tensor_core_kernel_at_full_size(
         reduced):
-    """fp32 at every full config's head dim (the fp32 check runs) takes
-    the split-precision instance; the reduced configs' narrow heads keep
-    the simt kernel."""
+    """fp32 at every config's head dim takes the split-precision
+    instance: the full configs' (the fp32 checks) and the reduced
+    configs' narrow heads alike."""
     from repro_torch.configs import all_configs
     got = {K2.variant(torch.float32, cfg.head_dim)
            for cfg in all_configs(reduced).values()}
-    assert got == ({"simt"} if reduced else {"wgmma_f32"})
+    assert got == {"wgmma_f32"}
 
 
 def bshd_view(B, H, S, D, dtype=torch.bfloat16, pad=0, offset=0):
@@ -214,13 +211,19 @@ def test_wgmma_output_is_contiguous_when_q_has_no_unit_stride_along_d():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("fn", [K2.flash_attention_wgmma,
-                                K2.flash_attention_simt])
-def test_each_variant_refuses_cpu_tensors(fn, dtype):
+@pytest.mark.parametrize("D", [64, 16])
+def test_each_variant_refuses_cpu_tensors(D, dtype):
+    """Each instance, at a head dim of 64 and at the narrow 16."""
     q, k, v = (torch.from_numpy(t).to(dtype)
-               for t in inputs(1, 2, 2, 8, 8, 64, 0))
+               for t in inputs(1, 2, 2, 8, 8, D, 0))
     with pytest.raises(ValueError, match="CUDA"):
-        fn(q, k, v, 0.125)
+        flash_attention_cuda(q, k, v, D ** -0.5)
+
+
+@pytest.mark.parametrize("D", [8, 48, 256])
+def test_head_dims_outside_the_instances_are_refused(D):
+    with pytest.raises(ValueError, match="head dim"):
+        K2.variant(torch.bfloat16, D)
 
 
 def test_reset_counts():
@@ -228,8 +231,7 @@ def test_reset_counts():
     K2.flash_attention_cuda.by_variant["wgmma"] = 3
     K2.reset_counts()
     assert K2.flash_attention_cuda.launches == 0
-    assert K2.flash_attention_cuda.by_variant == {"wgmma": 0, "wgmma_f32": 0,
-                                                  "simt": 0}
+    assert K2.flash_attention_cuda.by_variant == {"wgmma": 0, "wgmma_f32": 0}
 
 
 # ---- the f32 wgmma instance's precision contract, emulated on the CPU ----
@@ -310,6 +312,29 @@ def test_split_precision_contract_meets_the_reference(B, H, Hkv, Sq, Skv, D,
     """The f32 instance's hi/lo bf16 scheme, emulated in plain PyTorch,
     agrees with the reference's Pallas kernel (interpret mode) and its
     ``attention_ref`` within 1e-4."""
+    q, k, v = inputs(B, H, Hkv, Sq, Skv, D, seed=Sq + Skv + D + window)
+    kw = dict(scale=D ** -0.5, causal=causal, window=window)
+    got = split_precision_attention(
+        *(torch.from_numpy(t) for t in (q, k, v)), **kw).numpy()
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    for want in (ref_flash(jq, jk, jv, **kw), ref_attention(jq, jk, jv, **kw)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=SPLIT_TOL,
+                                   atol=SPLIT_TOL)
+
+
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,causal,window", [
+    (8, 4, 4, 256, 256, True, 0),           # the reduced configs' call
+    (2, 4, 2, 96, 96, True, 0),             # GQA, not a multiple of 64
+    (1, 2, 2, 40, 150, False, 0),           # ragged Sq and Skv
+    (1, 2, 2, 256, 256, True, 32),          # a sliding window
+])
+def test_split_precision_contract_at_the_narrow_head_dims(D, B, H, Hkv, Sq,
+                                                         Skv, causal,
+                                                         window):
+    """The f32 instance at head dims 16 and 32 (the reduced configs' 16):
+    the same hi/lo scheme, emulated, agrees with the reference's Pallas
+    kernel (interpret mode) and its ``attention_ref`` within 1e-4."""
     q, k, v = inputs(B, H, Hkv, Sq, Skv, D, seed=Sq + Skv + D + window)
     kw = dict(scale=D ** -0.5, causal=causal, window=window)
     got = split_precision_attention(

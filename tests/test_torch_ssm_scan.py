@@ -3,11 +3,13 @@ reference's ``ssd_scan`` (the Pallas kernel in interpret mode, and its
 ``impl="ref"`` sequential recurrence) and ``ssd_chunked_ref``, on the cases
 of ``tests/test_kernels.py``.
 
-On the CPU the op runs the kernels' plain version (the chunked scan from the
-given state, or from zero); the two CUDA kernels are held to it on the card
-by ``chip_smoke.py``.  Here: which kernel a call takes, what TMA can read as
-it lies, and a plain emulation of the wgmma kernel's split-precision
-arithmetic held to the reference.  Tolerance: the reference suite's 1e-4.
+On the CPU the op runs the kernel's plain version (the chunked scan from the
+given state, or from zero); the CUDA kernel is held to it on the card by
+``chip_smoke.py``.  Here: which instance a call takes, what TMA can read as
+it lies, a plain emulation of the wgmma kernel's split-precision arithmetic
+held to the reference, and of how it runs narrow dims and small configured
+chunks (zero-padded to its 64-wide tiles, at its own chunk tile).
+Tolerance: the reference suite's 1e-4.
 """
 
 import numpy as np
@@ -162,21 +164,23 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16, F16])
-@pytest.mark.parametrize("P", [16, 32, 64])
-@pytest.mark.parametrize("N", [16, 32, 64])
-@pytest.mark.parametrize("Q", [16, 64, 100, 128])
+@pytest.mark.parametrize("P", [1, 12, 16, 32, 48, 64])
+@pytest.mark.parametrize("N", [1, 12, 16, 32, 48, 64])
 @pytest.mark.parametrize("L", [1, 12, 64, 65, 2048])
-def test_dispatch_rule(dtype, P, N, Q, L):
-    """At P = N = 64 with a configured chunk of 128 bf16 B/C take the
-    wgmma kernel's bf16 instance and f32/f16 B/C its split instance, at
-    the 64-step tile (``"_short"``) for L <= 64 and the 128-step tile
-    above; narrower dims and chunks keep the simt kernel at any L."""
-    if P == N == 64 and Q == 128:
-        want = (("wgmma" if dtype == BF16 else "wgmma_split")
-                + ("_short" if L <= 64 else ""))
-    else:
-        want = "simt"
-    assert K3.variant(dtype, P, N, Q, L) == want
+def test_dispatch_rule(dtype, P, N, L):
+    """At every P, N <= 64 (multiples of 8 or not: the wrapper pads the
+    others) bf16 B/C take the wgmma kernel's bf16 instance and f32/f16
+    B/C its split instance, at the 64-step tile (``"_short"``) for L <= 64
+    and the 128-step tile above: the tile follows L alone."""
+    want = (("wgmma" if dtype == BF16 else "wgmma_split")
+            + ("_short" if L <= 64 else ""))
+    assert K3.variant(dtype, P, N, L) == want
+
+
+@pytest.mark.parametrize("P,N", [(65, 16), (16, 80), (0, 16)])
+def test_dims_outside_the_kernel_are_refused(P, N):
+    with pytest.raises(ValueError, match="limits"):
+        K3.variant(F32, P, N, 12)
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -185,16 +189,15 @@ def test_every_ssm_config_in_its_compute_dtype(reduced):
     length (bf16 compute, P = N = 64, configured chunk 128: the 64-step
     tile for the serving launcher's 12 tokens, the 128-step one for
     2048), and its fp32 runs on the split instance; its reduced config
-    (f32, P = N = 16, chunk 16) on the simt kernel.  The dispatch reads
-    the configured chunk, never ``min(chunk, L)``."""
+    (f32, P = N = 16, chunk 16) on the split instance too, at the tile L
+    picks."""
     ssm = {name: cfg for name, cfg in all_configs(reduced).items()
            if cfg.ssm is not None and "ssm" in cfg.layer_kinds()}
-    got = {name: {K3.variant(dt, cfg.ssm.head_dim, cfg.ssm.d_state,
-                             cfg.ssm.chunk, L)
+    got = {name: {K3.variant(dt, cfg.ssm.head_dim, cfg.ssm.d_state, L)
                   for dt in (cfg.dtype, F32) for L in (12, 2048)}
            for name, cfg in ssm.items()}
-    want = {"simt"} if reduced else {"wgmma", "wgmma_split", "wgmma_short",
-                                     "wgmma_split_short"}
+    want = ({"wgmma_split", "wgmma_split_short"} if reduced else
+            {"wgmma", "wgmma_split", "wgmma_short", "wgmma_split_short"})
     assert got == {"zamba2_1p2b": want}
 
 
@@ -267,12 +270,17 @@ def test_tma_strides(make, want):
 
 
 @pytest.mark.parametrize("bc_dtype", [BF16, F32, F16])
-@pytest.mark.parametrize("fn", [K3.ssd_scan_wgmma, K3.ssd_scan_simt,
-                                K3.ssd_scan_cuda])
-def test_each_variant_refuses_cpu_tensors(fn, bc_dtype):
-    x, a, Bm, Cm = (torch.from_numpy(t) for t in inputs(1, 8, 1, 64, 64, 0))
+@pytest.mark.parametrize("dims,chunk,tile", [
+    (64, 128, 128),     # the 128-step tile, called directly
+    (16, 16, None),     # the reduced config's dims and chunk
+    (64, 128, None),    # as the dispatch picks it
+])
+def test_each_variant_refuses_cpu_tensors(dims, chunk, tile, bc_dtype):
+    x, a, Bm, Cm = (torch.from_numpy(t)
+                    for t in inputs(1, 8, 1, dims, dims, 0))
     with pytest.raises(ValueError, match="CUDA"):
-        fn(x, a, Bm.to(bc_dtype), Cm.to(bc_dtype), 128)
+        ssd_scan_cuda(x, a, Bm.to(bc_dtype), Cm.to(bc_dtype), chunk,
+                      tile=tile)
 
 
 def test_reset_counts():
@@ -282,7 +290,7 @@ def test_reset_counts():
     assert K3.ssd_scan_cuda.launches == 0
     assert K3.ssd_scan_cuda.by_variant == {
         "wgmma": 0, "wgmma_split": 0, "wgmma_short": 0,
-        "wgmma_split_short": 0, "simt": 0}
+        "wgmma_split_short": 0}
 
 
 # ---- the wgmma kernel's precision contract, emulated on the CPU ----------
@@ -557,16 +565,77 @@ def test_split_launch_reads_the_planes_with_their_own_strides(monkeypatch,
     Bm, Cm = torch.zeros(B, L, N), torch.zeros(B, L, N)
     seen = {}
 
-    def fake_launch(lib, name, x, a, Bm, Cm, init_state, strides, *rest):
+    def fake_launch(name, x, a, Bm, Cm, init_state, strides, *rest):
         seen.update(name=name, strides=strides, B=Bm)
         return None, None
 
-    monkeypatch.setattr(K3, "_check", lambda *args: (0, B, L, H, 64, N, L))
+    monkeypatch.setattr(K3, "_check", lambda *args: (0, B, L, H, 64, N))
     monkeypatch.setattr(K3, "split_bc", lambda Bm, Cm, strides: torch.zeros(
         4, B, L, N, dtype=BF16))
     monkeypatch.setattr(K3, "_launch", fake_launch)
     monkeypatch.setattr(K3, "_count", lambda name: None)
-    K3.ssd_scan_wgmma(x, a, Bm, Cm, 128)
+    K3.ssd_scan_cuda(x, a, Bm, Cm, 128)
     assert seen["name"] == "ssd_scan_split_launch"
     assert seen["strides"][6:] == (L * N, N, L * N, N)
     assert seen["B"].shape == (4, B, L, N)
+
+
+@pytest.mark.parametrize("L", [1, 12, 64, 65, 200])
+@pytest.mark.parametrize("from_state", [False, True])
+def test_narrow_dims_at_the_kernels_tile_meet_the_reference_chunk(
+        L, from_state):
+    """How the wgmma kernel runs the reduced config's scan (P = N = 16, a
+    configured chunk of 16), in plain PyTorch: P and N zero-padded to the
+    tiles' 64 (x's, B's and C's columns, the initial state's rows and
+    columns, as TMA's out-of-bounds fill and the masked state load give
+    them), the steps padded to whole tiles (a = 1, x = B = C = 0), the
+    port's ``ssd_chunked_ref`` at the tile L picks (64 for L <= 64, else
+    128) and the result cut back to L, P and N.  It agrees with the
+    reference's ``ssd_chunked_ref`` at the configured chunk of 16 within
+    1e-4 of max(1, max |y|, max |S|), from zero and from a state: ignoring
+    a small configured chunk keeps the function."""
+    B, H, P, N, chunk = 2, 3, 16, 16, 16
+    arrays = inputs(B, L, H, P, N, seed=300 + L + from_state)
+    s0 = (np.random.default_rng(L + 11).normal(size=(B, H, P, N)).astype(
+        np.float32) if from_state else None)
+    tile = 64 if L <= 64 else 128
+    x, a, Bm, Cm = pad_steps(arrays, -(-L // tile) * tile)
+    wide = (np.pad(x, ((0, 0), (0, 0), (0, 0), (0, 64 - P))), a,
+            np.pad(Bm, ((0, 0), (0, 0), (0, 64 - N))),
+            np.pad(Cm, ((0, 0), (0, 0), (0, 64 - N))))
+    init = (None if s0 is None else torch.from_numpy(
+        np.pad(s0, ((0, 0), (0, 0), (0, 64 - P), (0, 64 - N)))))
+    y, s = ssd_chunked_ref(*(torch.from_numpy(t) for t in wide), tile, init)
+    assert not y[:, :, :, P:].any() and not s[:, :, P:].any()
+    assert not s[..., N:].any()
+    y, s = y[:, :L, :, :P].numpy(), s[:, :, :P, :N].numpy()
+    yr, sr = ref_chunked(*(jnp.asarray(t) for t in arrays), chunk,
+                         None if s0 is None else jnp.asarray(s0))
+    yr, sr = np.asarray(yr), np.asarray(sr)
+    scale = max(1.0, float(np.abs(yr).max()), float(np.abs(sr).max()))
+    assert y.shape == (B, L, H, P) and s.shape == (B, H, P, N)
+    assert float(np.abs(y - yr).max()) <= TOL * scale
+    assert float(np.abs(s - sr).max()) <= TOL * scale
+
+
+@pytest.mark.parametrize("P,N", [(12, 20), (16, 4), (64, 60)])
+@pytest.mark.parametrize("from_state", [False, True])
+def test_pad_dims_keeps_the_scan(P, N, from_state):
+    """Dims that are not multiples of 8 (a row of N bf16 values TMA
+    cannot read) reach the kernel zero-padded by ``pad_dims``: the scan
+    of the padded inputs, cut back to P and N, is the scan of the
+    originals, and the padded dims are multiples of 8."""
+    B, L, H = 2, 40, 2
+    x, a, Bm, Cm = (torch.from_numpy(t) for t in inputs(B, L, H, P, N, 5))
+    s0 = (torch.from_numpy(np.random.default_rng(1).normal(
+        size=(B, H, P, N)).astype(np.float32)) if from_state else None)
+    px, pB, pC, ps0 = K3.pad_dims(x, Bm, Cm, s0)
+    assert px.shape[-1] % 8 == 0 and pB.shape[-1] % 8 == 0
+    assert pB.shape == pC.shape
+    assert (ps0 is None) == (s0 is None)
+    if (P, N) == (px.shape[-1], pB.shape[-1]):
+        assert px is x and pB is Bm and pC is Cm and ps0 is s0
+    y, s = ssd_chunked_ref(px, a, pB, pC, 16, ps0)
+    yw, sw = ssd_chunked_ref(x, a, Bm, Cm, 16, s0)
+    torch.testing.assert_close(y[..., :P], yw, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(s[..., :P, :N], sw, rtol=1e-6, atol=1e-6)

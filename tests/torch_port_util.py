@@ -65,6 +65,7 @@ def _rank_main(rank, world, store_path, target, args, queue):
         dist.init_process_group(
             "gloo", store=dist.FileStore(store_path, world), rank=rank,
             world_size=world)
+        queue.put((rank, "ready", None))
         queue.put((rank, "ok", target(rank, *args)))
     except BaseException:
         queue.put((rank, "error", traceback.format_exc()))
@@ -73,13 +74,23 @@ def _rank_main(rank, world, store_path, target, args, queue):
             dist.destroy_process_group()
 
 
+#: seconds from the spawn until every rank has joined the group: four
+#: interpreters starting, importing torch and the test module, and the
+#: gloo rendezvous, under the whole suite's load
+JOIN_TIMEOUT = 240.0
+
+
 def run_ranks(target, world: int, tmp_path, timeout: float, *args):
     """``target(rank, *args)`` in ``world`` spawned processes joined in one
     gloo group (a ``FileStore`` under ``tmp_path``, one intra-op thread
-    each) -> the results by rank.  A rank that fails, or a run that
-    outlasts ``timeout`` seconds, fails the caller."""
+    each) -> the results by rank.  A rank that fails, ranks that have not
+    all joined the group ``JOIN_TIMEOUT`` seconds after the spawn, or a
+    run that outlasts ``timeout`` seconds from the moment the last rank
+    joined, fail the caller: the run's clock starts at the rendezvous, so
+    a slow start under load does not eat into it."""
     import multiprocessing as mp
     import queue as queue_mod
+    import time
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
@@ -87,19 +98,31 @@ def run_ranks(target, world: int, tmp_path, timeout: float, *args):
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, store, target, args, q))
              for r in range(world)]
+    t0 = time.monotonic()
     for p in procs:
         p.start()
-    out = {}
+    joined, out, t_joined = set(), {}, None
     try:
-        for _ in range(world):
+        while len(out) < world:
+            if t_joined is None:
+                left = JOIN_TIMEOUT - (time.monotonic() - t0)
+                late = f"ranks did not join the group in {JOIN_TIMEOUT} s"
+            else:
+                left = timeout - (time.monotonic() - t_joined)
+                late = (f"ranks did not finish in {timeout} s after "
+                        f"joining the group")
             try:
-                rank, status, value = q.get(timeout=timeout)
+                rank, status, value = q.get(timeout=max(left, 0.01))
             except queue_mod.Empty:
-                raise AssertionError(
-                    f"ranks did not finish in {timeout} s") from None
-            if status != "ok":
+                raise AssertionError(late) from None
+            if status == "error":
                 raise AssertionError(f"rank {rank} failed:\n{value}")
-            out[rank] = value
+            if status == "ready":
+                joined.add(rank)
+                if len(joined) == world:
+                    t_joined = time.monotonic()
+            else:
+                out[rank] = value
     finally:
         for p in procs:
             p.join(timeout=10)
