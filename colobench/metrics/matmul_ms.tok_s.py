@@ -1,0 +1,4 @@
+"""matmul_ms in the traced prefill calls, in the cells that report
+``prefill_tok_s`` (:func:`colobench.lib.readers.matmul_ms`)."""
+
+from colobench.lib.readers import matmul_ms as read  # noqa: F401

@@ -1,0 +1,89 @@
+"""Every cell's files are found by name, and ``BENCHMARK.json`` keeps
+to the form its checker requires."""
+
+import importlib
+import json
+import re
+
+import pytest
+
+from colobench.lib import cells
+
+BENCH = cells.benchmark()
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+CELLS = [w["name"] for w in BENCH["workloads"]]
+
+
+def test_top_level_keys():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"}
+    assert BENCH["command"] == ["python3", "colobench/run.py"]
+    assert BENCH["paths"] == ["colobench"]
+    assert 1 <= BENCH["run_seconds"] <= 51
+    n = len(BENCH["workloads"])
+    # a full check of 24 cells fits in 43,200 s
+    assert (2 + 14 * 24) * (BENCH["run_seconds"] + 60) + 24 * 180 + 1200 \
+        <= 43200
+    assert 1 <= n <= 24
+    assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= max(1, n // 4)
+
+
+def test_names_units_and_bounds():
+    names = []
+    for c in BENCH["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert c["file"].startswith("colobench/") and NAME.match(c["name"])
+        names.append(c["name"])
+    for w in BENCH["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert NAME.match(w["name"]) and NAME.match(w["traffic"])
+        assert len(w["why"]) <= 200 and "\n" not in w["why"]
+        names.append(w["name"])
+    for m in BENCH["end_to_end"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
+                                          "source"}
+        assert m["source"] in ("host_clock", "device_trace")
+        assert 0.01 <= m["bound"] <= 0.25
+    assert "setup_s" in {m["name"] for m in BENCH["end_to_end"]}
+    for m in BENCH["per_layer"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "source",
+                                          "layer", "moves"}
+        assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"])
+        assert m["better"] in ("lower", "higher")
+        names.append(m["name"])
+    assert len(names) == len(set(names))
+    assert len(json.dumps(BENCH)) < 64 * 1024
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_cell_files_found_by_name(name):
+    cell = cells.load(name)
+    assert cell.config["name"] == next(
+        w["config"] for w in BENCH["workloads"] if w["name"] == name)
+    gen = importlib.import_module(
+        f"colobench.generators.{cell.traffic['kind']}")
+    assert callable(gen.run)
+    assert cell.limits and all(v >= 0 for v in cell.limits.values())
+    assert any(v > 0 for v in cell.limits.values())
+    assert callable(cell.reference().prefill)
+    fam = importlib.import_module(
+        f"colobench.families.{cell.config['reference']}")
+    for attr in ("STD", "RESIDUAL", "FIXED", "layer_view", "cache_view",
+                 "params_per_token", "attention_layers"):
+        assert hasattr(fam, attr), attr
+    reported = {m["name"] for m in cell.end_to_end}
+    assert "setup_s" in reported and len(reported) >= 2
+    assert cell.per_layer
+    for m in cell.per_layer:
+        assert m["moves"] in reported
+        assert callable(cells.reader(m["name"]).read)
+
+
+def test_every_config_and_metric_is_used():
+    used = {w["config"] for w in BENCH["workloads"]}
+    assert used == {c["name"] for c in BENCH["configs"]}
+    for m in BENCH["per_layer"]:
+        assert set(m.get("workloads", CELLS)) <= set(CELLS)
