@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels._build import require_local
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.tracing import span
 
 #: what :class:`FlashAttention`'s forward runs, with ``attention_ref``'s
 #: signature.  Tests point it at the plain version (run without autograd)
@@ -74,5 +75,6 @@ def flash_attention(
     """Softmax attention, output in q's dtype; ``window=0`` means none."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, scale, causal, window)
-    require_local(q, k, v)
-    return FlashAttention.apply(q, k, v, scale, causal, window)
+    with span("attn.k2"):        # the host wrapper and the launch
+        require_local(q, k, v)
+        return FlashAttention.apply(q, k, v, scale, causal, window)

@@ -41,6 +41,7 @@ from repro_torch.models.sharding import (
     mesh_coordinate,
     split_last,
 )
+from repro_torch.tracing import span
 
 NEG_INF = -1e30
 
@@ -231,17 +232,16 @@ def attention_full(
     ``positions=None`` skips RoPE (whisper adds absolute positions at the
     input instead)."""
     dt = x.dtype
-    q, k, v = _project_qkv(cfg, p, x, x, dt)
-    if positions is None:
-        pass
-    elif cfg.mrope:
-        q = apply_mrope(q, positions, cfg.rope_theta)
-        k = apply_mrope(k, positions, cfg.rope_theta)
-    else:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    with span("attn.qkv"):
+        q, k, v = _project_qkv(cfg, p, x, x, dt)
+    if positions is not None:
+        with span("attn.rope"):
+            rope = apply_mrope if cfg.mrope else apply_rope
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
     out = _flash(cfg, q, k, v, causal)
-    y = merge_last(out) @ p["wo"].to(dt)
+    with span("attn.out"):
+        y = merge_last(out) @ p["wo"].to(dt)
     return y, {"k": k, "v": v}
 
 

@@ -28,6 +28,7 @@ from repro_torch.models.layers import embed_apply, rms_norm
 from repro_torch.models.params import Init
 from repro_torch.models.rwkv import rwkv_dims
 from repro_torch.models.sharding import compute_view, constrain
+from repro_torch.tracing import span
 
 #: the activations' logical axes (under a sharding policy)
 ACT = ("batch", "seq", "embed_act")
@@ -221,11 +222,12 @@ class LM:
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The embedded inputs and their positions, laid out as the policy
         asks (the identity without one)."""
-        x = self._embed(params, tokens, embeds)
-        if positions is None:
-            positions = self._positions(*x.shape[:2], x.device)
-        positions = constrain(positions, ("batch",) + (None,) * (
-            positions.dim() - 2) + ("seq",))
+        with span("model.embed"):
+            x = self._embed(params, tokens, embeds)
+            if positions is None:
+                positions = self._positions(*x.shape[:2], x.device)
+            positions = constrain(positions, ("batch",) + (None,) * (
+                positions.dim() - 2) + ("seq",))
         return x, positions
 
     def forward_hidden(self, params: Dict,
@@ -285,7 +287,8 @@ class LM:
         x, positions = self._inputs(params, tokens, embeds, None)
         h, _, caches = tf.stack_full(cfg, params, x, positions,
                                      collect_cache=True)
-        logits = tf.lm_logits(cfg, params, h[:, -1:, :])[:, 0]
+        with span("model.head"):
+            logits = tf.lm_logits(cfg, params, h[:, -1:, :])[:, 0]
         return logits, caches
 
     @torch.no_grad()

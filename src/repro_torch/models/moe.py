@@ -40,6 +40,7 @@ from repro_torch.models.sharding import (
     local_call,
     mesh_coordinate,
 )
+from repro_torch.tracing import span
 
 
 def init_moe(cfg: ModelConfig, init: Init) -> Dict:
@@ -118,40 +119,49 @@ def _dispatch_group(m: MoEConfig, xt: torch.Tensor, w: torch.Tensor,
     slots then give zeros."""
     T, D = xt.shape
     k, E = m.top_k, m.n_experts
-    flat_e = e.reshape(-1)                                  # [T*k]
-    # place of each (token, slot) within its expert, token-major order: its
-    # rank in a stable sort by expert less the expert's first rank (the
-    # reference's exclusive cumsum over a one-hot, without the [T*k, E]
-    # scan)
-    order = torch.argsort(flat_e, stable=True)
-    counts = _counts(flat_e, E)
-    rank = torch.empty_like(flat_e)
-    rank[order] = torch.arange(T * k, device=xt.device)
-    pos = rank - (torch.cumsum(counts, 0) - counts)[flat_e]
-    keep = pos < cap                                        # dropped past cap
-    dest = (flat_e * cap + torch.where(keep, pos, 0)).reshape(T, k)
-    keep = keep.reshape(T, k)
+    with span("moe.dispatch"):
+        flat_e = e.reshape(-1)                              # [T*k]
+        # place of each (token, slot) within its expert, token-major order:
+        # its rank in a stable sort by expert less the expert's first rank
+        # (the reference's exclusive cumsum over a one-hot, without the
+        # [T*k, E] scan)
+        order = torch.argsort(flat_e, stable=True)
+        counts = _counts(flat_e, E)
+        rank = torch.empty_like(flat_e)
+        rank[order] = torch.arange(T * k, device=xt.device)
+        pos = rank - (torch.cumsum(counts, 0) - counts)[flat_e]
+        keep = pos < cap                                    # dropped past cap
+        dest = (flat_e * cap + torch.where(keep, pos, 0)).reshape(T, k)
+        keep = keep.reshape(T, k)
 
-    buf = torch.zeros(E * cap + 1, D, dtype=compute_dtype, device=xt.device)
-    xc = xt.to(compute_dtype)
-    for j in range(k):          # dropped slots land in the spare last row
-        buf.index_copy_(0, torch.where(keep[:, j], dest[:, j], E * cap), xc)
-    El = p["gate"].shape[0]
-    eb = buf[first_expert * cap:(first_expert + El) * cap].view(El, cap, D)
-    h = torch.bmm(eb, p["gate"].to(compute_dtype))
-    u = torch.bmm(eb, p["up"].to(compute_dtype))
-    out = torch.bmm(F.silu(h) * u, p["down"].to(compute_dtype))
-    out = out.view(El * cap, D)
-    if El < E:                  # zero rows for the other ranks' experts
-        out = F.pad(out, (0, 0, first_expert * cap,
-                          (E - first_expert - El) * cap))
-    del buf, eb, h, u
+        buf = torch.zeros(E * cap + 1, D, dtype=compute_dtype,
+                          device=xt.device)
+        xc = xt.to(compute_dtype)
+        for j in range(k):      # dropped slots land in the spare last row
+            buf.index_copy_(0, torch.where(keep[:, j], dest[:, j], E * cap),
+                            xc)
+        El = p["gate"].shape[0]
+        eb = buf[first_expert * cap:(first_expert + El) * cap].view(
+            El, cap, D)
+    with span("moe.experts"):
+        h = torch.bmm(eb, p["gate"].to(compute_dtype))
+        u = torch.bmm(eb, p["up"].to(compute_dtype))
+        with span("moe.swiglu"):
+            a = F.silu(h) * u
+        out = torch.bmm(a, p["down"].to(compute_dtype))
+        out = out.view(El * cap, D)
+        if El < E:              # zero rows for the other ranks' experts
+            out = F.pad(out, (0, 0, first_expert * cap,
+                              (E - first_expert - El) * cap))
+    del buf, eb, h, u, a
 
-    wc = w.to(compute_dtype)
-    y = None
-    for j in range(k):
-        g = torch.where(keep[:, j, None], out[dest[:, j]], 0) * wc[:, j, None]
-        y = g if y is None else y + g
+    with span("moe.combine"):
+        wc = w.to(compute_dtype)
+        y = None
+        for j in range(k):
+            g = torch.where(keep[:, j, None], out[dest[:, j]], 0) \
+                * wc[:, j, None]
+            y = g if y is None else y + g
     return y
 
 
@@ -169,7 +179,8 @@ def _moe_tokens(m: MoEConfig, p: Dict, xt: torch.Tensor, compute_dtype,
     groups of independent capacity; ``G`` falls back to 1 when it does
     not divide the token count, as in the reference."""
     T = xt.shape[0]
-    w, e, aux = _route(m, xt @ p["router"].to(compute_dtype))
+    with span("moe.route"):
+        w, e, aux = _route(m, xt @ p["router"].to(compute_dtype))
     G = m.n_groups if T % m.n_groups == 0 else 1
     Tg = T // G
     cap = capacity(m, Tg)

@@ -55,6 +55,7 @@ from repro_torch.models.sharding import (
     current_policy,
     use_policy,
 )
+from repro_torch.tracing import span
 from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 
 
@@ -152,37 +153,44 @@ def block_full(
     positions: torch.Tensor,
     state: Optional[Any],
 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
-    """Whole-sequence block application -> (x, new_state, aux_loss)."""
-    p = compute_view(p, block_axes(cfg, kind, variant))  # FSDP JIT gather
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    act = ("batch", "seq", "embed_act")
-    if kind in ("attn", "attn_shared"):
-        h = rms_norm(x, p["ln1"]["scale"])
-        full = attn.mla_full if cfg.mla else attn.attention_full
-        y, cache = full(cfg, p["attn"], h, positions)
-        # the mixer's partial sums over model, reduced before the residual
-        # (else the MLP would run whole on partial inputs)
-        x = x + constrain(y, act)
-        h = rms_norm(x, p["ln2"]["scale"])
-        if variant == "moe":
-            y, aux = moe_mod.moe_apply(cfg, p["mlp"], h, x.dtype)
-        else:
-            y = swiglu_apply(p["mlp"], h, x.dtype)
-        return constrain(x + y, act), cache, aux
-    if kind == "ssm":
-        h = rms_norm(x, p["ln1"]["scale"])
-        y, new_state = ssm_mod.ssm_full(cfg, p["ssm"], h, state)
-        return constrain(x + y, act), new_state, aux
-    if kind == "rwkv":
-        h = rms_norm(x, p["ln1"]["scale"])
-        y, t_new = rwkv_mod.rwkv_time_full(
-            cfg, p["time"], h, None if state is None else state["time"])
-        x = x + constrain(y, act)
-        h = rms_norm(x, p["ln2"]["scale"])
-        y, c_new = rwkv_mod.rwkv_channel_full(
-            cfg, p["channel"], h, None if state is None else state["channel"])
-        return constrain(x + y, act), {"time": t_new, "channel": c_new}, aux
-    raise ValueError(kind)
+    """Whole-sequence block application -> (x, new_state, aux_loss),
+    inside the span ``model.block``."""
+    with span("model.block"):
+        # the FSDP just-in-time gather
+        p = compute_view(p, block_axes(cfg, kind, variant))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        act = ("batch", "seq", "embed_act")
+        if kind in ("attn", "attn_shared"):
+            with span("model.norm"):
+                h = rms_norm(x, p["ln1"]["scale"])
+            full = attn.mla_full if cfg.mla else attn.attention_full
+            y, cache = full(cfg, p["attn"], h, positions)
+            # the mixer's partial sums over model, reduced before the
+            # residual (else the MLP would run whole on partial inputs)
+            x = x + constrain(y, act)
+            with span("model.norm"):
+                h = rms_norm(x, p["ln2"]["scale"])
+            if variant == "moe":
+                y, aux = moe_mod.moe_apply(cfg, p["mlp"], h, x.dtype)
+            else:
+                y = swiglu_apply(p["mlp"], h, x.dtype)
+            return constrain(x + y, act), cache, aux
+        if kind == "ssm":
+            h = rms_norm(x, p["ln1"]["scale"])
+            y, new_state = ssm_mod.ssm_full(cfg, p["ssm"], h, state)
+            return constrain(x + y, act), new_state, aux
+        if kind == "rwkv":
+            h = rms_norm(x, p["ln1"]["scale"])
+            y, t_new = rwkv_mod.rwkv_time_full(
+                cfg, p["time"], h, None if state is None else state["time"])
+            x = x + constrain(y, act)
+            h = rms_norm(x, p["ln2"]["scale"])
+            y, c_new = rwkv_mod.rwkv_channel_full(
+                cfg, p["channel"], h,
+                None if state is None else state["channel"])
+            return (constrain(x + y, act), {"time": t_new, "channel": c_new},
+                    aux)
+        raise ValueError(kind)
 
 
 def block_decode(
