@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k3-short    # K3 alone: build, sweeps, timings
+    python3 chip_smoke.py --norm-rope   # the norm and RoPE kernels, timed
 
 1. Prints the card's name and power limit.
-2. Builds the three CUDA libraries side by side (one nvcc each, sm_90a):
+2. Builds the four CUDA libraries side by side (one nvcc each, sm_90a):
    K1 fused fold (register-path kernels for G <= 8, a shared-memory one
    for larger G), K2 flash attention in its two variants (at head dims
    16, 32, 64 and 128 ``wgmma`` for bf16/f16 and ``wgmma_f32`` for f32,
@@ -13,8 +14,9 @@
    any P, N <= 64 and any configured chunk, ``wgmma`` for bf16 B/C and
    ``wgmma_split`` for f32/f16 B/C, and below 65 steps the short
    kernel's 64-step tile, ``wgmma_short`` and ``wgmma_split_short``),
-   logs each kernel's registers and spills, and how many CTAs of each K3
-   wgmma tile fit an SM (the short kernel must fit two).
+   the one-pass RMSNorm and RoPE kernels, logs each kernel's registers
+   and spills, and how many CTAs of each K3 wgmma tile fit an SM (the
+   short kernel must fit two).
 3. Holds K1 against its plain PyTorch version and the float64 NumPy oracle
    over bf16/f32/i32/bool payloads, G in {1, 2, 7, 64, the kernel's
    limit}, ragged and one-column shapes and NaN/Inf in masked-off rows,
@@ -63,10 +65,14 @@
 6. Serves zamba2-1.2b at full width and depth (38 layers, random weights from
    a seed) through ``ServeEngine(device="cuda")``: 8 requests, 2048 prompt
    tokens, 64 new tokens, greedy; counts K2/K3 launches per prefill by
-   wrapper, by variant and by the profiler's kernel names, and holds the
-   prefill and every decode step's logits against the same model run with
-   the kernels' plain versions on the same token stream (bf16 activations:
-   the wgmma variants of K2 and K3; fp32: wgmma_f32 and wgmma_split).  A
+   wrapper, by variant and by the profiler's kernel names, and the norm
+   and RoPE launches of the generate call and of one prefill (each call
+   one launch; the profiler's records of the two kernels equal to the
+   launches), and holds the prefill and every decode step's logits
+   against the same model run with the kernels' plain versions
+   (``plain_kernels()``: K2, K3, the norm and RoPE, none of whose kernels
+   may launch) on the same token stream (bf16 activations: the wgmma
+   variants of K2 and K3; fp32: wgmma_f32 and wgmma_split).  A
    12-token prefill (the serving launcher's default prompt, shorter than
    one chunk) through the same engine in bf16 takes
    K3's short kernel (``wgmma_short``) 32 times and no other K3 variant,
@@ -136,7 +142,11 @@
    C launchers inside it), and its distance to a float64 run of the plain
    version; K3 and K2's device-timed calls are timed right after the
    sweeps, in a process of its own (``--measure-apart``), whose profiler
-   keeps every kernel record.
+   keeps every kernel record.  Then the norm and RoPE kernels at the long
+   benchmark cell's mean request (norm ``[7208, 4096]``, RoPE q ``[1,
+   7208, 32, 128]`` and k ``[1, 7208, 8, 128]``, bf16) beside the plain
+   functions and, for the norm, ``F.rms_norm``: each kernel within one
+   bf16 unit in the last place of the plain function.
 8. Prints one JSON line of kernel measurements, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -203,6 +213,11 @@ from repro_torch.kernels.flash_attention import kernel as K2  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as K2_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref,
+)
+from repro_torch.kernels.norm_rope import ops as NR  # noqa: E402
+from repro_torch.kernels.norm_rope.ref import (  # noqa: E402
+    rms_norm_plain,
+    rope_qk_plain,
 )
 from repro_torch.kernels.ssm_scan import kernel as K3  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as K3_ops  # noqa: E402
@@ -1573,18 +1588,64 @@ def plain_ssd(x, a, Bm, Cm, chunk, init_state=None):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The forward hooks of the model's two kernel Functions
-    (``K2_ops.FORWARD``, ``K3_ops.FORWARD``) pointed at the kernels' plain
-    versions (``attention_ref``; ``ssd_chunked_ref`` from the given
-    state); undone on exit.  The wrappers are never reached while it is
-    active, and the Functions' backwards (the plain versions recomputed)
-    are those of the kernel runs."""
-    saved = K2_ops.FORWARD, K3_ops.FORWARD
-    K2_ops.FORWARD, K3_ops.FORWARD = attention_ref, plain_ssd
+    """The forward hooks of the model's kernel Functions (``K2_ops.FORWARD``,
+    ``K3_ops.FORWARD``, ``NR.NORM_FORWARD``, ``NR.ROPE_FORWARD``) pointed at
+    the kernels' plain versions (``attention_ref``; ``ssd_chunked_ref`` from
+    the given state; ``rms_norm_plain``; ``rope_qk_plain``); undone on exit,
+    where the norm and RoPE kernels must have launched nothing.  The
+    wrappers are never reached while it is active, and the Functions'
+    backwards (the plain versions recomputed) are those of the kernel
+    runs."""
+    saved = (K2_ops.FORWARD, K3_ops.FORWARD, NR.NORM_FORWARD,
+             NR.ROPE_FORWARD)
+    before = nr_launches()
+    (K2_ops.FORWARD, K3_ops.FORWARD, NR.NORM_FORWARD,
+     NR.ROPE_FORWARD) = (attention_ref, plain_ssd, rms_norm_plain,
+                         rope_qk_plain)
     try:
         yield
+        check(nr_launches() == before,
+              f"plain-kernel run launched the norm or RoPE kernel: "
+              f"{before} -> {nr_launches()}")
     finally:
-        K2_ops.FORWARD, K3_ops.FORWARD = saved
+        (K2_ops.FORWARD, K3_ops.FORWARD, NR.NORM_FORWARD,
+         NR.ROPE_FORWARD) = saved
+
+
+def nr_launches():
+    return NR.rms_norm_cuda.launches, NR.rope_cuda.launches
+
+
+@contextlib.contextmanager
+def nr_counted():
+    """The norm and RoPE launches of one main path: the counters zeroed,
+    the model's calls of ``NR.rms_norm`` and ``NR.rope`` counted beside
+    them; the dict it yields gets ``norm``/``rope`` (launches) and
+    ``norm_calls``/``rope_calls`` on exit, where every call must have
+    launched its kernel once."""
+    out = {}
+    calls = {"norm_calls": 0, "rope_calls": 0}
+    saved = NR.rms_norm, NR.rope
+
+    def norm(*a, **k):
+        calls["norm_calls"] += 1
+        return saved[0](*a, **k)
+
+    def rope(*a, **k):
+        calls["rope_calls"] += 1
+        return saved[1](*a, **k)
+
+    NR.reset_counts()
+    NR.rms_norm, NR.rope = norm, rope
+    try:
+        yield out
+    finally:
+        NR.rms_norm, NR.rope = saved
+    out.update(calls, norm=NR.rms_norm_cuda.launches,
+               rope=NR.rope_cuda.launches)
+    check(out["norm"] == out["norm_calls"] > 0
+          and out["rope"] == out["rope_calls"] > 0,
+          f"norm and RoPE calls against launches: {out}")
 
 
 def teacher_forced(model, cfg, params, capacity, prompts, tokens):
@@ -1643,6 +1704,10 @@ def breakdown(wall, prof):
             cat = "K3 short"
         elif "split_bc_kernel" in name:
             cat = "K3 pre-pass"
+        elif "rmsnorm_rows_kernel" in name:
+            cat = "norm"
+        elif "rope_qk_kernel" in name:
+            cat = "rope"
         elif "memcpy" in name or "memset" in name:
             cat = "copy"
         elif any(w in name for w in ("gemm", "cutlass", "xmma", "nvjet",
@@ -1683,7 +1748,9 @@ def serve_path():
 
     K2.reset_counts()
     K3.reset_counts()
-    res = engine.generate(prompts, SERVE_NEW)
+    with nr_counted() as nr:
+        res = engine.generate(prompts, SERVE_NEW)
+    out["nr_launches"] = nr
     out["launches"] = {"K2": K2.flash_attention_cuda.launches,
                        "K3": K3.ssd_scan_cuda.launches}
     out["k2_variants"] = dict(K2.flash_attention_cuda.by_variant)
@@ -1707,10 +1774,15 @@ def serve_path():
 
     pr = torch.as_tensor(prompts, dtype=torch.int64, device=DEV)
     toks = torch.as_tensor(res.tokens, dtype=torch.int64, device=DEV)
-    wall, secs, calls, top = device_breakdown(
-        lambda: engine.model.prefill(engine.params, pr))
-    check(calls.get("K2") == want["K2"] and calls.get("K3") == want["K3"],
-          f"profiler kernel names per prefill: {calls}")
+    with nr_counted() as nr:
+        wall, secs, calls, top = device_breakdown(
+            lambda: engine.model.prefill(engine.params, pr))
+    out["nr_prefill"] = nr
+    check(calls.get("K2") == want["K2"] and calls.get("K3") == want["K3"]
+          and calls.get("norm") == nr["norm"]
+          and calls.get("rope") == nr["rope"],
+          f"profiler kernel names per prefill: {calls}, norm and RoPE "
+          f"launches {nr}")
     out["prefill_trace"] = (wall, secs, calls, top)
     _, caches = engine.model.prefill(engine.params, pr)
     caches = pad_caches(cfg, caches, engine.capacity)
@@ -1812,10 +1884,11 @@ def short_prefill(engine, model32, params32, prompts, want):
     ``plain_kernels()``, with the full prompt's tolerances."""
     p = prompts[:, :SHORT_PROMPT]
     reset_kernel_counts()
-    res = engine.generate(p, 4)
+    with nr_counted() as nr:
+        res = engine.generate(p, 4)
     out = {"k2": dict(K2.flash_attention_cuda.by_variant),
            "k3": dict(K3.ssd_scan_cuda.by_variant),
-           "prefill_s": res.prefill_s}
+           "prefill_s": res.prefill_s, "nr_launches": nr}
     check(out["k2"] == only(K2, wgmma=want["K2"])
           and out["k3"] == only(K3, wgmma_short=want["K3"]),
           f"{SHORT_PROMPT}-token bf16 prefill: K2 {out['k2']}, K3 "
@@ -1869,9 +1942,10 @@ def reduced_serve():
                  + kinds.count("attn")),
             only(K3, wgmma_split_short=kinds.count("ssm")))
     reset_kernel_counts()
-    res = engine.generate(prompts, REDUCED_NEW)
+    with nr_counted() as nr:
+        res = engine.generate(prompts, REDUCED_NEW)
     out = {"counts": kernel_counts(), "want": want,
-           "prefill_s": res.prefill_s}
+           "prefill_s": res.prefill_s, "nr_launches": nr}
     check(out["counts"] == want,
           f"reduced config launches {out['counts']}, want {want}")
     pr = torch.as_tensor(prompts, dtype=torch.int64, device=DEV)
@@ -3451,7 +3525,7 @@ def report_ptxas(lib):
 def build_kernels():
     """Start every kernel's nvcc at once, then wait on each."""
     t0 = time.perf_counter()
-    libs = (K.LIBRARY, K2.WGMMA_LIBRARY, K3.WGMMA_LIBRARY)
+    libs = (K.LIBRARY, K2.WGMMA_LIBRARY, K3.WGMMA_LIBRARY, NR.LIBRARY)
     for lib in libs:
         lib.start()
     for lib in libs:
@@ -3462,6 +3536,110 @@ def build_kernels():
     log(f"all kernels built in {time.perf_counter() - t0:.1f} s, side by "
         f"side")
     report_k3_occupancy()
+
+
+#: the long cell's mean request (mixtral-8x7b, 7,208 tokens): the norm's
+#: rows and RoPE's q and k
+NR_TOKENS, NR_WIDTH = 7208, 4096
+NR_HEADS, NR_KV_HEADS, NR_HEAD_DIM = 32, 8, 128
+NR_THETA = 1e6
+
+
+def ulps(got, want):
+    """The largest gap between ``got`` and ``want`` in units in the last
+    place of their dtype (bf16 or f16) at the larger magnitude."""
+    mant = {torch.bfloat16: 7, torch.float16: 10}[got.dtype]
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(
+        torch.finfo(got.dtype).tiny)
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 1 - mant)
+    return float(((g - w).abs() / ulp).max())
+
+
+def measure_norm_rope(reps=50):
+    """Both one-pass kernels at the long cell's mean shape beside the
+    plain functions (CUDA events over ``reps`` calls, bf16): ``{"norm":
+    ..., "rope": ...}`` as :func:`bound_entry`s, each with ``ulps``, its
+    largest gap to the plain function in bf16 units in the last place,
+    which must be at most one.  The norm's ``library_ms`` is
+    ``F.rms_norm`` (one PyTorch call, the same function), with its own
+    gap as ``library_ulps``; RoPE has no such call.  The bound counts
+    each input read once and each output written once."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf = torch.bfloat16
+    T, D = NR_TOKENS, NR_HEAD_DIM
+    x = torch.randn(T, NR_WIDTH, generator=gen, device="cuda").to(bf)
+    w = (1 + 0.1 * torch.randn(NR_WIDTH, generator=gen, device="cuda")).to(bf)
+    q = torch.randn(1, T, NR_HEADS * D, generator=gen, device="cuda").to(
+        bf).view(1, T, NR_HEADS, D)
+    k = torch.randn(1, T, NR_KV_HEADS * D, generator=gen, device="cuda").to(
+        bf).view(1, T, NR_KV_HEADS, D)
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    out = {}
+    with torch.no_grad():
+        want = rms_norm_plain(x, w)
+        got = NR.rms_norm_cuda(x, w, 1e-6)
+        err = ulps(got, want)
+        gap = float((got.float() - want.float()).abs().max())
+        check(err <= 1, f"norm kernel {err:.3g} ulps from the plain norm")
+        ms = event_ms(lambda: NR.rms_norm_cuda(x, w, 1e-6), reps)
+        plain = event_ms(lambda: rms_norm_plain(x, w), reps)
+        lib = lib_err = None
+        if hasattr(torch.nn.functional, "rms_norm"):
+            def lib_fn():
+                return torch.nn.functional.rms_norm(x, (NR_WIDTH,), w, 1e-6)
+            lib_err = ulps(lib_fn(), want)
+            lib = event_ms(lib_fn, reps)
+        out["norm"] = bound_entry(gap, ms, plain, lib, 0,
+                                  2 * x.numel() * 2 + w.numel() * 2)
+        out["norm"].update(ulps=err, library_ulps=lib_err)
+        qo, ko = NR.rope_cuda(q, k, pos, NR_THETA)
+        wq, wk = rope_qk_plain(q, k, pos, NR_THETA)
+        err = max(ulps(qo, wq), ulps(ko, wk))
+        gap = max(float((a.float() - b.float()).abs().max())
+                  for a, b in ((qo, wq), (ko, wk)))
+        check(err <= 1, f"RoPE kernel {err:.3g} ulps from the plain RoPE")
+        ms = event_ms(lambda: NR.rope_cuda(q, k, pos, NR_THETA), reps)
+        plain = event_ms(lambda: rope_qk_plain(q, k, pos, NR_THETA), reps)
+        out["rope"] = bound_entry(gap, ms, plain, None, 0,
+                                  2 * (q.numel() + k.numel()) * 2 + T * 4)
+        out["rope"].update(ulps=err)
+    return out
+
+
+def report_norm_rope(m, card):
+    for tag, what in (("norm", f"rms_norm [{NR_TOKENS}, {NR_WIDTH}] bf16"),
+                      ("rope", f"RoPE q [1, {NR_TOKENS}, {NR_HEADS}, "
+                       f"{NR_HEAD_DIM}] and k [1, {NR_TOKENS}, "
+                       f"{NR_KV_HEADS}, {NR_HEAD_DIM}] bf16")):
+        e = m[tag]
+        log(f"{what} on {card}: kernel {e['ms']:.4f} ms, plain "
+            f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+            f"(bytes), {100 * e['bound_ms'] / e['ms']:.1f}% of it; "
+            f"{e['ulps']:.3g} ulps from plain"
+            + ("" if e["library_ms"] is None else
+               f"; F.rms_norm {e['library_ms']:.4f} ms, "
+               f"{e['library_ulps']:.3g} ulps"))
+
+
+def norm_rope_main() -> int:
+    """``python3 chip_smoke.py --norm-rope``: the norm and RoPE kernels
+    alone: build, registers, timing at the long cell's mean shape."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run",
+              file=sys.stderr)
+        return 2
+    card = card_line()
+    log(f"card {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    NR.LIBRARY.get()
+    log(f"built {NR.LIBRARY.source.name} in {NR.LIBRARY.build_seconds:.1f} "
+        f"s")
+    report_ptxas(NR.LIBRARY)
+    m = measure_norm_rope()
+    report_norm_rope(m, card)
+    print(json.dumps({"norm_rope": m}), flush=True)
+    print(card, flush=True)
+    return 0
 
 
 def kernel_line(name, source, replaces, launches, m):
@@ -3612,6 +3790,8 @@ def main() -> int:
     k2m.update(apart["k2"])
     report_k2(k2m, card)
     report_k3(k3m, K3_TIMED, card)
+    nrm = measure_norm_rope()
+    report_norm_rope(nrm, card)
 
     red = sv["reduced"]["counts"]
     print(json.dumps({"kernels": [
@@ -3666,6 +3846,12 @@ def main() -> int:
                     red[1]["wgmma_split_short"],
                     k3m[f"narrow_L{SHORT_PROMPT}_f32bc"]
                     ["wgmma_split_short"]),
+        kernel_line("rms_norm",
+                    "src/repro_torch/kernels/norm_rope/csrc/norm_rope.cu",
+                    None, sv["nr_launches"]["norm"], nrm["norm"]),
+        kernel_line("rope",
+                    "src/repro_torch/kernels/norm_rope/csrc/norm_rope.cu",
+                    None, sv["nr_launches"]["rope"], nrm["rope"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3677,4 +3863,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--measure-apart"] and len(sys.argv) == 3:
         sys.exit(measure_apart_main(sys.argv[2]))
+    if sys.argv[1:] == ["--norm-rope"]:
+        sys.exit(norm_rope_main())
     sys.exit(k3_short_main() if sys.argv[1:] == ["--k3-short"] else main())

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_mrope, apply_rope, rms_norm
+from repro_torch.models.layers import (apply_mrope, apply_rope,
+                                      apply_rope_qk, rms_norm)
 from repro_torch.models.params import Init, normal_init
 from repro_torch.models.sharding import (
     current_policy,
@@ -236,9 +237,11 @@ def attention_full(
         q, k, v = _project_qkv(cfg, p, x, x, dt)
     if positions is not None:
         with span("attn.rope"):
-            rope = apply_mrope if cfg.mrope else apply_rope
-            q = rope(q, positions, cfg.rope_theta)
-            k = rope(k, positions, cfg.rope_theta)
+            if cfg.mrope:
+                q = apply_mrope(q, positions, cfg.rope_theta)
+                k = apply_mrope(k, positions, cfg.rope_theta)
+            else:
+                q, k = apply_rope_qk(q, k, positions, cfg.rope_theta)
     out = _flash(cfg, q, k, v, causal)
     with span("attn.out"):
         y = merge_last(out) @ p["wo"].to(dt)
@@ -343,8 +346,7 @@ def attention_decode(
         q = apply_mrope(q, pos3, cfg.rope_theta)
         k_new = apply_mrope(k_new, pos3, cfg.rope_theta)
     else:
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+        q, k_new = apply_rope_qk(q, k_new, pos[:, None], cfg.rope_theta)
     scale = cfg.head_dim ** -0.5
 
     def body(q, k_new, v_new, k, v, pos):

@@ -12,6 +12,12 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.norm_rope import ops as norm_rope
+from repro_torch.kernels.norm_rope.ref import (  # noqa: F401 (re-exported)
+    apply_rope_plain,
+    rms_norm_plain,
+    rope_freqs,
+)
 from repro_torch.models.params import Init, normal_init, embed_init
 from repro_torch.models.sharding import (
     compute_view,
@@ -22,14 +28,27 @@ from repro_torch.models.sharding import (
 )
 
 
+def _rows_whole(t) -> tuple:
+    """A DTensor's placements with its last dimension gathered and partial
+    sums reduced: the layout a kernel over whole rows takes."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() if p.is_partial() or p.is_shard(t.dim() - 1)
+                 else p for p in t.placements)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """fp32 inside, cast back to x's dtype."""
-    dt = x.dtype
-    x = x.to(torch.float32)
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * weight.to(torch.float32)).to(dt)
+    """fp32 inside, cast back to x's dtype: the norm kernel on CUDA
+    tensors (a DTensor's local shards, rows whole), ``rms_norm_plain`` on
+    the rest."""
+    if is_dtensor(x) and x.device.type == norm_rope.DEVICE:
+        from torch.distributed.tensor import Replicate
+
+        pl = _rows_whole(x)
+        return local_call(lambda a, w: norm_rope.rms_norm(a, w, eps),
+                          (x, weight), (pl, (Replicate(),) * len(pl)), pl)
+    return norm_rope.rms_norm(x, weight, eps)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -60,24 +79,36 @@ def layer_norm_axes() -> Dict:
     return {"scale": ("embed",), "bias": ("embed",)}
 
 
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """[head_dim/2] inverse frequencies."""
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
-
-
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Rotate ``x [..., S, H, D]`` by ``positions [..., S]`` (split-half
-    rotation, fp32 inside)."""
-    d = x.shape[-1]
-    inv = rope_freqs(d, theta, x.device)
-    ang = positions[..., :, None].to(torch.float32) * inv   # [..., S, D/2]
-    cos = torch.cos(ang)[..., None, :]                     # [..., S, 1, D/2]
-    sin = torch.sin(ang)[..., None, :]
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    rotation, fp32 inside): the RoPE kernel on CUDA tensors (``[B, S, H,
+    D]``; a DTensor's local shards, head dims whole),
+    ``apply_rope_plain`` on the rest."""
+    if is_dtensor(x) and x.device.type == norm_rope.DEVICE:
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = _rows_whole(x)
+        lead = x.dim() - 2                 # positions align with x[..., S]
+        ppl = []
+        for p in pl:
+            j = p.dim - lead + positions.dim() if p.is_shard() else -1
+            ppl.append(Shard(j) if 0 <= j < positions.dim() and p.dim < lead
+                       and positions.shape[j] == x.shape[p.dim] > 1
+                       else Replicate())
+        return local_call(
+            lambda a, pos: norm_rope.rope(a, None, pos, theta)[0],
+            (x, positions), (pl, tuple(ppl)), pl)
+    return norm_rope.rope(x, None, positions, theta)[0]
+
+
+def apply_rope_qk(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+                  theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``apply_rope`` on q and on k, in one launch of the RoPE kernel on
+    CUDA tensors (one each on DTensors)."""
+    if is_dtensor(q) or is_dtensor(k):
+        return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+    return norm_rope.rope(q, k, positions, theta)
 
 
 def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,

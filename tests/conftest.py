@@ -17,6 +17,9 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-device subprocess tests (minutes, not ms)")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (a kernel with no CPU mode); "
+        "skips without one")
 
 
 try:
