@@ -24,6 +24,15 @@ STD = {"table": 1.0, "router": 0.02}
 RESIDUAL = ("wo", "down")
 #: leaves with a fixed value: the norms' scales
 FIXED = {"scale": 1.0}
+#: the CPU tests' stand-in (``colobench/tests/colobench_tiny.py``): the
+#: same family and flags at tiny widths
+TINY = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+            d_ff=128, vocab=512,
+            moe={"n_experts": 4, "top_k": 2, "d_ff_expert": 96,
+                 "capacity_factor": 1.25})
+#: the attention windows the CPU tests run program and reference under:
+#: dense, and a window shorter than their prompts
+WINDOWS = (None, 24)
 
 
 def _flat_block(block: Dict) -> Dict:

@@ -8,12 +8,13 @@ read next:
   each side's mean over the vocabulary removed (a constant shift changes
   no probability).
 - ``cache_med``: over the checked requests, the largest of each
-  request's median error over its layers' cache leaves (K/V): the
-  relative distance of the program's cache from the reference's, of
-  the whole stack's caches that decode would read.
+  request's median error over its layers' cache leaves (Mixtral's
+  K/V): the relative distance of the program's cache from the
+  reference's, of the whole stack's caches that decode would read.
 - ``cache_first``: over the checked requests, the largest error of the
-  first layer's K/V, which no earlier layer's drift reaches: the
-  precision of the projections themselves.
+  first layer's cache leaves, as many as its family caches, which no
+  earlier layer's drift reaches: the precision of the projections
+  themselves.
 - ``token_mismatch``: the checked requests whose served first token is
   not the greedy choice of the logits the prefill returned (an exact
   comparison: limit 0).  With ``logit_err`` it ties each served token to
@@ -86,9 +87,9 @@ class Numbers:
         self.gaps: List[float] = []
         self.logits: List[float] = []
         self.caches: List[float] = []
-        #: each checked call's cache errors, layer by layer, ``k`` then
-        #: ``v``
-        self.cache_by_call: List[List[float]] = []
+        #: each checked call's cache errors: a list a layer, one error a
+        #: leaf its family caches, in the leaves' sorted order
+        self.cache_by_call: List[List[List[float]]] = []
         self.mismatch = 0
         #: per request: the reference's routing readings at its last token
         #: (the narrowest router margin, the nearest capacity edge)
@@ -98,9 +99,10 @@ class Numbers:
             diag: Optional[List[Dict]] = None):
         self.gaps += token_gaps(ref_logits, served)
         self.logits += logit_errs(prog_logits, ref_logits)
-        errs = cache_errs(prog_caches, ref_caches)
-        self.caches += errs
-        self.cache_by_call.append(errs)
+        by_layer = [cache_errs([p], [r])
+                    for p, r in zip(prog_caches, ref_caches, strict=True)]
+        self.caches += [e for layer in by_layer for e in layer]
+        self.cache_by_call.append(by_layer)
         greedy = prog_logits.argmax(dim=-1).tolist()
         self.mismatch += sum(int(a) != int(b) for a, b in zip(served, greedy))
         if diag:
@@ -116,9 +118,11 @@ class Numbers:
                                   "token_mismatch", "cache_max"),
                                  float("inf"))
         return {"logit_err": statistics.median(self.logits),
-                "cache_med": max(statistics.median(e)
-                                 for e in self.cache_by_call),
-                "cache_first": max(max(e[:2]) for e in self.cache_by_call),
+                "cache_med": max(statistics.median(e for layer in call
+                                                   for e in layer)
+                                 for call in self.cache_by_call),
+                "cache_first": max(max(call[0])
+                                   for call in self.cache_by_call),
                 "token_mismatch": self.mismatch,
                 # logged beside them, not compared
                 "cache_max": max(self.caches)}

@@ -71,8 +71,8 @@ def test_cell_files_found_by_name(name):
     assert callable(cell.reference().prefill)
     fam = importlib.import_module(
         f"colobench.families.{cell.config['reference']}")
-    for attr in ("STD", "RESIDUAL", "FIXED", "layer_view", "cache_view",
-                 "params_per_token", "attention_layers"):
+    for attr in ("STD", "RESIDUAL", "FIXED", "TINY", "layer_view",
+                 "cache_view", "params_per_token", "attention_layers"):
         assert hasattr(fam, attr), attr
     reported = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in reported and len(reported) >= 2

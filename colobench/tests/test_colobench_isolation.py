@@ -31,8 +31,13 @@ print("PORT", "repro_torch" in sys.modules)
 """
 
 REFERENCE = r"""
-import sys
-import colobench.reference.common, colobench.reference.mixtral
+import importlib, json, sys
+bench = json.load(open("BENCHMARK.json"))
+refs = sorted({json.load(open(c["file"]))["reference"]
+               for c in bench["configs"]})
+for ref in ["common"] + refs:
+    importlib.import_module("colobench.reference." + ref)
+print("REFS", ",".join(refs))
 print("LOADED", sorted({m.split(".")[0] for m in sys.modules}
                        & {"repro_torch", "repro", "jax", "jaxlib"}))
 """
@@ -55,7 +60,9 @@ def test_a_run_loads_no_jax_and_no_reference_package():
 
 
 def test_references_load_nothing_of_the_program():
-    assert _probe(REFERENCE)["LOADED"] == "[]"
+    """The reference of every configuration in ``BENCHMARK.json``."""
+    lines = _probe(REFERENCE)
+    assert lines["REFS"] and lines["LOADED"] == "[]"
 
 
 def test_forbidden_names_compare_whole():

@@ -33,15 +33,24 @@ def test_least_seconds():
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_active_weights_match_the_program(name):
     """The layers' weights a token multiplies through, against the
-    program's active count less the embedding, head and norms."""
+    program's active count less the embedding, head and norms, with each
+    weight counted as often as a token passes it (the family's ``uses``:
+    a shared block at each layer that runs it) and the embedding and head
+    as one matrix where the program ties them."""
     c = CONFIGS[name]
     cfg = model.model_config(c)
+    fam = model.family(c)
+    uses = getattr(fam, "uses", lambda c, path: 1)
     tree = model.build_model(cfg).init(device="meta")
-    small = sum(t.numel() for p, t in model.leaf_paths(tree)
-                if t.dim() - (p[0] == "runs") <= 1)
-    rest = 2 * c["d_model"] * c["vocab"] + small
-    assert model.family(c).params_per_token(c) == \
-        cfg.active_param_count() - rest
+    small = again = 0
+    for p, t in model.leaf_paths(tree):
+        if model.own_dims(p, t) <= 1:
+            small += t.numel()
+        elif p[0] not in ("embed", "lm_head"):
+            again += (uses(c, p) - 1) * t.numel()
+    head = (1 if cfg.tie_embeddings else 2) * c["d_model"] * c["vocab"]
+    assert fam.params_per_token(c) == \
+        cfg.active_param_count() - head - small + again
 
 
 def test_flops_of_a_prefill():
